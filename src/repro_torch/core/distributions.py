@@ -1,0 +1,345 @@
+"""Lifetime models for temporally constrained preemptions (Eqs. 1-5), in
+PyTorch.
+
+Port of ``repro.core.distributions`` for the families the checkpointing
+pipeline uses: the paper's 4-parameter constrained model
+
+    F(t) = A * (1 - exp(-t/tau1) + exp((t-b)/tau2)),   0 < t < L (~24 h)
+
+(:class:`Constrained`), its launch-phase-modulated form
+(:class:`DiurnalConstrained`) and the :class:`Exponential` and
+:class:`Weibull` baselines.  Each is a frozen dataclass whose fields are
+Python floats or float64 tensors; every method computes in float64 on the
+device of its tensor fields (or of the query, when that is a tensor).
+:func:`stack` gives the fields a leading ``(S,)`` scenario axis.  Time unit
+is HOURS.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+# 24-hour maximum lifetime of Google Preemptible VMs.
+DEADLINE_HOURS = 24.0
+
+# Clip for exponent arguments to keep fitting iterates finite.
+_EXP_CLIP = 60.0
+
+# 64-point Gauss-Legendre rule on [-1, 1] (numeric partial expectations),
+# with nodes and weights rounded to float32 as ``repro`` stores them; the
+# sums themselves run in float64.
+_GL_X, _GL_W = (x.astype(np.float32).astype(np.float64)
+                for x in np.polynomial.legendre.leggauss(64))
+
+_F64 = torch.float64
+
+
+def _dist(cls):
+    return dataclasses.dataclass(frozen=True, eq=False)(cls)
+
+
+def _exp(x):
+    return torch.exp(torch.clamp(x, -_EXP_CLIP, _EXP_CLIP))
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip`` with tensor or scalar bounds: ``min(max(x, lo), hi)``."""
+    lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+    hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _gauss_legendre(fn, a, b):
+    """integral_a^b fn(x) dx with the fixed 64-point GL rule."""
+    a, b = torch.broadcast_tensors(a, b)
+    half = 0.5 * (b - a)
+    mid = 0.5 * (a + b)
+    gx = torch.as_tensor(_GL_X, dtype=_F64, device=a.device)
+    gw = torch.as_tensor(_GL_W, dtype=_F64, device=a.device)
+    x = mid[..., None] + half[..., None] * gx
+    return half * torch.sum(gw * fn(x), dim=-1)
+
+
+def _bisect_icdf(cdf_fn, u, lo, hi, iters: int = 64):
+    """Invert a monotone CDF by bisection."""
+    lo = torch.broadcast_to(torch.as_tensor(lo, dtype=u.dtype,
+                                            device=u.device), u.shape)
+    hi = torch.broadcast_to(torch.as_tensor(hi, dtype=u.dtype,
+                                            device=u.device), u.shape)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        below = cdf_fn(mid) < u
+        lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+    return 0.5 * (lo + hi)
+
+
+class _DistBase:
+    """Generic implementations; families override where a closed form
+    exists."""
+
+    @property
+    def device(self) -> torch.device:
+        """Device of the first tensor field (CPU when all are floats)."""
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                return v.device
+        return torch.device("cpu")
+
+    def _f64(self, t):
+        if isinstance(t, torch.Tensor):
+            return t.to(_F64)
+        return torch.as_tensor(t, dtype=_F64, device=self.device)
+
+    def partial_expectation(self, a, b):
+        """integral_a^b x f(x) dx (numeric fallback)."""
+        return _gauss_legendre(lambda x: x * self.pdf(x), self._f64(a),
+                               self._f64(b))
+
+    def icdf(self, u):
+        return _bisect_icdf(self.cdf, self._f64(u), 0.0, self._f64(self.L))
+
+
+@_dist
+class Constrained(_DistBase):
+    """The paper's constrained-preemption model (Eq. 1)."""
+
+    tau1: float | torch.Tensor = 1.0
+    tau2: float | torch.Tensor = 0.8
+    b: float | torch.Tensor = 24.0
+    A: float | torch.Tensor = 0.475
+    L: float | torch.Tensor = DEADLINE_HOURS
+
+    def cdf(self, t):
+        return torch.clamp(self.cdf_raw(t), 0.0, 1.0)
+
+    def cdf_raw(self, t):
+        """Unclipped Eq. 1."""
+        t = self._f64(t)
+        return self.A * (1.0 - _exp(-t / self.tau1)
+                         + _exp((t - self.b) / self.tau2))
+
+    def pdf(self, t):
+        """Eq. 2: f(t) = A * (e^{-t/tau1}/tau1 + e^{(t-b)/tau2}/tau2)."""
+        t = self._f64(t)
+        return self.A * (_exp(-t / self.tau1) / self.tau1
+                         + _exp((t - self.b) / self.tau2) / self.tau2)
+
+    def hazard(self, t):
+        """Eq. 5 with r1 = 1/tau1, r2 = 1/tau2."""
+        t = self._f64(t)
+        r1, r2 = 1.0 / self.tau1, 1.0 / self.tau2
+        num = r1 * _exp(-r1 * t) + r2 * _exp(r2 * (t - self.b))
+        den = 1.0 / self.A - 1.0 + _exp(-r1 * t) - _exp(r2 * (t - self.b))
+        return num / torch.clamp(den, min=1e-12)
+
+    def _antiderivative(self, t):
+        """G(t) = A[-(t+tau1)e^{-t/tau1} + (t-tau2)e^{(t-b)/tau2}]."""
+        return self.A * (-(t + self.tau1) * _exp(-t / self.tau1)
+                         + (t - self.tau2) * _exp((t - self.b) / self.tau2))
+
+    def partial_expectation(self, a, b):
+        return (self._antiderivative(self._f64(b))
+                - self._antiderivative(self._f64(a)))
+
+    def icdf(self, u):
+        """Invert Eq. 1: 12 bracketing halvings, then 6 safeguarded Newton
+        steps (the bracket keeps shrinking, an overshoot is clipped back
+        into it, and an iterate on the clipped plateau F_raw > 1 takes the
+        bracket midpoint instead)."""
+        u = self._f64(u)
+        lo = torch.zeros_like(u)
+        hi = torch.broadcast_to(self._f64(self.L), u.shape)
+        for _ in range(12):
+            mid = 0.5 * (lo + hi)
+            below = self.cdf(mid) < u
+            lo, hi = torch.where(below, mid, lo), torch.where(below, hi, mid)
+        t = 0.5 * (lo + hi)
+        for _ in range(6):
+            # Eq. 1 cdf and Eq. 2 pdf share their two exponentials
+            e1 = _exp(-t / self.tau1)
+            e2 = _exp((t - self.b) / self.tau2)
+            F_raw = self.A * (1.0 - e1 + e2)
+            F = torch.clamp(F_raw, 0.0, 1.0)
+            below = F < u
+            lo = torch.where(below, t, lo)
+            hi = torch.where(below, hi, t)
+            pdf = self.A * (e1 / self.tau1 + e2 / self.tau2)
+            tn = _clip(t - (F - u) / torch.clamp(pdf, min=1e-30), lo, hi)
+            t = torch.where(F_raw > 1.0, 0.5 * (lo + hi), tn)
+        return t
+
+
+def capped_constrained(base, *, A_scale, tau1_scale) -> Constrained:
+    """Scale a Constrained-parameterized model's early phase (``A``,
+    ``tau1``) while keeping the raw Eq. 1 CDF proper (<= 1) up to the
+    deadline; the cap never pushes ``A`` below the base fit."""
+    f64 = base._f64
+    tau1 = torch.clamp(f64(base.tau1) * tau1_scale, min=0.05)
+    cap = (1.0 - 1e-3) / (1.0 - _exp(-f64(base.L) / tau1)
+                          + _exp((f64(base.L) - base.b) / base.tau2))
+    A = _clip(f64(base.A) * A_scale, 1e-3, torch.maximum(cap, f64(base.A)))
+    return Constrained(tau1=tau1, tau2=base.tau2, b=base.b, A=A, L=base.L)
+
+
+@_dist
+class DiurnalConstrained(_DistBase):
+    """Obs. 5 launch-phase-modulated constrained model:
+
+        m(c)     = cos(2*pi*(c - peak_clock) / 24)
+        A_eff    = A    * (1 + amp_A    * m(launch_clock))
+        tau1_eff = tau1 * (1 - amp_tau1 * m(launch_clock))
+
+    with ``A_eff`` capped by :func:`capped_constrained`.  Every method
+    delegates to the launch-resolved :meth:`effective` model."""
+
+    tau1: float | torch.Tensor = 1.0
+    tau2: float | torch.Tensor = 0.8
+    b: float | torch.Tensor = 24.0
+    A: float | torch.Tensor = 0.475
+    launch_clock: float | torch.Tensor = 12.0
+    amp_A: float | torch.Tensor = 0.15
+    amp_tau1: float | torch.Tensor = 0.35
+    peak_clock: float | torch.Tensor = 20.0
+    L: float | torch.Tensor = DEADLINE_HOURS
+
+    def modulation(self):
+        """m(launch_clock) in [-1, 1]; +1 at the busiest launch hour."""
+        return torch.cos(2.0 * math.pi
+                         * (self._f64(self.launch_clock) - self.peak_clock)
+                         / 24.0)
+
+    def effective(self) -> Constrained:
+        m = self.modulation()
+        return capped_constrained(self, A_scale=1.0 + self.amp_A * m,
+                                  tau1_scale=1.0 - self.amp_tau1 * m)
+
+    def cdf(self, t):
+        return self.effective().cdf(t)
+
+    def cdf_raw(self, t):
+        return self.effective().cdf_raw(t)
+
+    def pdf(self, t):
+        return self.effective().pdf(t)
+
+    def hazard(self, t):
+        return self.effective().hazard(t)
+
+    def partial_expectation(self, a, b):
+        return self.effective().partial_expectation(a, b)
+
+    def icdf(self, u):
+        return self.effective().icdf(u)
+
+
+@_dist
+class Exponential(_DistBase):
+    """Memoryless baseline: F(t) = 1 - e^{-t/mttf}."""
+
+    mttf: float | torch.Tensor = 6.0
+    L: float | torch.Tensor = DEADLINE_HOURS
+
+    def cdf(self, t):
+        return 1.0 - _exp(-self._f64(t) / self.mttf)
+
+    def pdf(self, t):
+        return _exp(-self._f64(t) / self.mttf) / self.mttf
+
+    def hazard(self, t):
+        return torch.broadcast_to(1.0 / self._f64(self.mttf),
+                                  self._f64(t).shape)
+
+    def partial_expectation(self, a, b):
+        def g(t):
+            return -(t + self.mttf) * _exp(-t / self.mttf)
+        return g(self._f64(b)) - g(self._f64(a))
+
+
+@_dist
+class Weibull(_DistBase):
+    """F(t) = 1 - exp(-(lam*t)^k)."""
+
+    lam: float | torch.Tensor = 0.15
+    k: float | torch.Tensor = 0.9
+    L: float | torch.Tensor = DEADLINE_HOURS
+
+    def _z(self, t):
+        return torch.clamp(self.lam * self._f64(t), min=1e-12)
+
+    def cdf(self, t):
+        return 1.0 - _exp(-torch.pow(self._z(t), self.k))
+
+    def pdf(self, t):
+        z = self._z(t)
+        return (self.lam * self.k * torch.pow(z, self.k - 1.0)
+                * _exp(-torch.pow(z, self.k)))
+
+    def hazard(self, t):
+        return self.lam * self.k * torch.pow(self._z(t), self.k - 1.0)
+
+
+VM_TYPE_PARAMS = {
+    # name                tau1   tau2    b     A     (Obs. 4: larger => faster)
+    "n1-highcpu-2": dict(tau1=1.5, tau2=0.85, b=24.0, A=0.40),
+    "n1-highcpu-4": dict(tau1=1.3, tau2=0.85, b=24.0, A=0.42),
+    "n1-highcpu-8": dict(tau1=1.1, tau2=0.80, b=24.0, A=0.44),
+    "n1-highcpu-16": dict(tau1=1.0, tau2=0.80, b=24.0, A=0.475),
+    "n1-highcpu-32": dict(tau1=0.6, tau2=0.75, b=24.0, A=0.50),
+    # TPU-fleet analogue used by the training framework (pod-granular)
+    "tpu-v5e-pod": dict(tau1=1.0, tau2=0.80, b=24.0, A=0.475),
+}
+
+
+def registry():
+    """Family name -> class, for the families this package ports."""
+    return {
+        "constrained": Constrained,
+        "diurnal_constrained": DiurnalConstrained,
+        "exponential": Exponential,
+        "weibull": Weibull,
+    }
+
+
+def stack(dists, device=None):
+    """One distribution of the shared family whose fields are float64
+    ``(S,)`` tensors, on ``device`` (default: the first entry's device)."""
+    dists = list(dists)
+    if not dists:
+        raise ValueError("stack() needs at least one distribution")
+    cls = type(dists[0])
+    if any(type(d) is not cls for d in dists[1:]):
+        raise TypeError("stack() requires one distribution family, got "
+                        f"{sorted({type(d).__name__ for d in dists})}")
+    dev = dists[0].device if device is None else device
+    return cls(**{
+        f.name: torch.stack([torch.as_tensor(getattr(d, f.name), dtype=_F64,
+                                             device=dev) for d in dists])
+        for f in dataclasses.fields(cls)})
+
+
+def unstack(dist):
+    """Invert :func:`stack`: a list of per-scenario distributions."""
+    fields = dataclasses.fields(dist)
+    lead = getattr(dist, fields[0].name)
+    if not isinstance(lead, torch.Tensor) or lead.ndim == 0:
+        raise ValueError("unstack() expects a stacked distribution with a "
+                         "leading scenario axis")
+    return [dataclasses.replace(dist, **{f.name: getattr(dist, f.name)[i]
+                                         for f in fields})
+            for i in range(lead.shape[0])]
+
+
+def constrained_for(vm_type: str = "n1-highcpu-16") -> Constrained:
+    return Constrained(**VM_TYPE_PARAMS[vm_type])
+
+
+def diurnal_for(vm_type: str = "n1-highcpu-16",
+                launch_clock: float = 12.0, **kw) -> DiurnalConstrained:
+    """The type's paper-calibrated Eq. 1 fit, modulated by the wall-clock
+    launch hour; ``kw`` overrides any field."""
+    return DiurnalConstrained(**{**VM_TYPE_PARAMS[vm_type],
+                                 "launch_clock": launch_clock, **kw})

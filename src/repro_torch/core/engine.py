@@ -1,0 +1,352 @@
+"""Monte-Carlo makespan executor and lifetime pools, in PyTorch (the
+checkpointing half of ``repro.core.engine``).
+
+Policies are integer tables ``P[j, t] -> interval`` (steps until the next
+checkpoint given ``j`` remaining steps and VM age index ``t``); the
+age-independent Young-Daly and no-checkpoint policies are ``(j_max+1, 1)``
+columns.  :func:`simulate_makespan_batch` runs every cell of a sweep as one
+lane of one event loop on the device, in float64: work is counted in
+integer grid steps and the only float accumulation is the sum of preempted
+partial segments, so on a shared pool each lane performs the same IEEE
+operations as ``repro``'s executor under x64 and the makespans agree to the
+bit.  Pools are drawn from ``numpy.random.default_rng`` uniforms in
+``repro``'s order and inverted on the device.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from . import distributions as dists_mod
+
+_F64 = torch.float64
+
+# events run between two host checks of "is any trial still running";
+# the extra iterations after the last trial finishes change nothing
+_CHECK_EVERY = 8
+
+
+def _on(x, device, dtype):
+    """``x`` (tensor or array-like) as a ``dtype`` tensor on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.array(x))
+    return x.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# policy tables
+# ---------------------------------------------------------------------------
+
+def dp_policy_table(tables) -> torch.Tensor:
+    """The DP's optimal-interval table ``K[j, t]``."""
+    return tables.K.to(torch.int32)
+
+
+def young_daly_policy_table(tau_steps: int, job_steps: int) -> np.ndarray:
+    """Fixed-interval policy ``min(tau, remaining)`` as a (j_max+1, 1)
+    table."""
+    j = np.arange(job_steps + 1, dtype=np.int32)
+    return np.minimum(np.maximum(int(tau_steps), 1), j)[:, None].astype(
+        np.int32)
+
+
+def no_checkpoint_policy_table(job_steps: int) -> np.ndarray:
+    """Run-to-completion: the next 'segment' is the whole remaining job."""
+    return np.arange(job_steps + 1, dtype=np.int32)[:, None]
+
+
+def validate_policy_table(table) -> np.ndarray:
+    """Reject a policy table the executor must never serve from: non-finite
+    entries, intervals outside ``[0, j]`` or zero with work remaining.
+    Returns the table as host int32; raises ValueError."""
+    raw = (table.cpu().numpy() if isinstance(table, torch.Tensor)
+           else np.asarray(table))
+    if not np.all(np.isfinite(raw)):
+        raise ValueError("validate_policy_table: non-finite entries")
+    t = raw.astype(np.int32)
+    if t.ndim != 2:
+        raise ValueError(f"validate_policy_table: expected a 2-D (j, t) "
+                         f"table, got shape {raw.shape}")
+    j = np.arange(t.shape[0], dtype=np.int32)[:, None]
+    if np.any(t < 0) or np.any(t > j):
+        raise ValueError("validate_policy_table: intervals outside [0, j]")
+    if t.shape[0] > 1 and np.any(t[1:] < 1):
+        raise ValueError("validate_policy_table: zero interval with work "
+                         "remaining (j >= 1)")
+    return t
+
+
+def stack_policy_tables(tables, t_axis: int | None = None, *,
+                        device="cuda") -> torch.Tensor:
+    """Stack per-cell 2-D policy tables (numpy arrays or tensors) into one
+    ``(B, j_max+1, t_axis)`` int32 tensor on ``device``.  A 1-wide
+    age-independent column is replicated across the age axis, which
+    changes no lookup; any other width mismatch is rejected."""
+    dev = resolve_device(device)
+    tables = [_on(t, dev, torch.int32) for t in tables]
+    if not tables:
+        raise ValueError("stack_policy_tables() needs at least one table")
+    if any(t.ndim != 2 for t in tables):
+        raise ValueError("stack_policy_tables() stacks 2-D (j, t) tables")
+    j_axis = tables[0].shape[0]
+    if any(t.shape[0] != j_axis for t in tables):
+        raise ValueError("policy tables must share the remaining-work axis; "
+                         f"got {sorted({t.shape[0] for t in tables})}")
+    if t_axis is None:
+        t_axis = max(t.shape[1] for t in tables)
+    out = torch.empty((len(tables), j_axis, int(t_axis)), dtype=torch.int32,
+                      device=dev)
+    for b, t in enumerate(tables):
+        if t.shape[1] not in (1, t_axis):
+            raise ValueError(
+                f"table {b} has age axis {t.shape[1]}; expected 1 (age-"
+                f"independent) or {t_axis} — widening an age-dependent "
+                f"table would need resampling, not replication")
+        out[b] = t.expand(j_axis, int(t_axis))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lifetime pools
+# ---------------------------------------------------------------------------
+
+def capped_icdf_draw(dist, u, fl, L):
+    """Lifetimes ``icdf(min(u, fl * (1 - 1e-6)))``, with the residual
+    ``u >= fl`` mass preempted AT the deadline ``L``.  ``fl`` and ``L``
+    broadcast against ``u`` (scalars, or ``(S, 1)`` beside a stacked
+    distribution)."""
+    t = dist.icdf(torch.minimum(u, fl * (1.0 - 1e-6)))
+    return torch.where(u >= fl, torch.as_tensor(L, dtype=t.dtype,
+                                                 device=t.device), t)
+
+
+def draw_lifetime_pool_batch(dists, n_trials: int, *, max_restarts: int = 64,
+                             seed=0, start_age: float = 0.0, device="cuda"):
+    """Lifetime pools for a list of cells: ``first`` ``(S, n_trials)`` and
+    ``pool`` ``(S, n_trials, max_restarts + 2)``, float64 on ``device``.
+
+    ``seed`` is one integer (every entry shares its uniforms) or one seed
+    per entry.  Each entry's uniforms come from its own
+    ``np.random.default_rng(seed)`` stream in ``repro``'s order (pool
+    block, then the first draws), drawn once per unique seed; the inverse
+    CDF runs on the device over all entries at once."""
+    dev = resolve_device(device)
+    dists = list(dists)
+    eff = [d.effective() if hasattr(d, "effective") else d for d in dists]
+    stacked = dists_mod.stack(eff, device=dev)
+    d_b = dataclasses.replace(stacked, **{
+        f.name: getattr(stacked, f.name)[:, None]
+        for f in dataclasses.fields(stacked)})
+    S = len(dists)
+    n_pool = n_trials * (max_restarts + 2)
+    if np.ndim(seed) == 0:
+        rng = np.random.default_rng(seed)
+        u_pool = torch.as_tensor(rng.uniform(size=n_pool),
+                                 device=dev).expand(S, n_pool)
+        u_first = torch.as_tensor(rng.uniform(size=n_trials),
+                                  device=dev).expand(S, n_trials)
+    else:
+        seed = list(seed)
+        if len(seed) != S:
+            raise ValueError(f"per-entry seeds need one seed per entry: got "
+                             f"{len(seed)} seeds for {S} distributions")
+        draws, order = {}, []
+        for s in seed:
+            if s not in draws:
+                r = np.random.default_rng(s)
+                draws[s] = (len(order), r.uniform(size=n_pool),
+                            r.uniform(size=n_trials))
+                order.append(s)
+        rows = torch.as_tensor([draws[s][0] for s in seed], device=dev)
+        u_pool = torch.as_tensor(np.stack([draws[s][1] for s in order]),
+                                 device=dev)[rows]
+        u_first = torch.as_tensor(np.stack([draws[s][2] for s in order]),
+                                  device=dev)[rows]
+    fl = torch.tensor([float(d.cdf(d.L)) for d in eff], dtype=_F64,
+                      device=dev)[:, None]
+    L = torch.tensor([float(d.L) for d in eff], dtype=_F64,
+                     device=dev)[:, None]
+    pool = capped_icdf_draw(d_b, u_pool, fl, L)
+    if start_age > 0:
+        f_lo = torch.tensor([float(d.cdf(start_age)) for d in eff],
+                            dtype=_F64, device=dev)[:, None]
+    else:
+        f_lo = torch.zeros((S, 1), dtype=_F64, device=dev)
+    first = capped_icdf_draw(d_b, f_lo + u_first * (1.0 - f_lo), fl, L)
+    return first, pool.reshape(S, n_trials, max_restarts + 2)
+
+
+# ---------------------------------------------------------------------------
+# the event loop
+# ---------------------------------------------------------------------------
+
+def _event_loop(table, tix, pool_steps, pix, first_steps, job_steps,
+                age0_idx, delta_steps, max_restarts, max_events):
+    """THE makespan event loop over ``(B, n_trials)`` lanes: lane ``b``
+    reads its policy from ``table[tix[b]]`` and its lifetimes from
+    ``pool_steps[pix[b]]``.  One iteration is one work-segment attempt for
+    every running trial; trials that finished or ran out of restarts are
+    frozen.  Returns ``(done_steps, lost_steps, restarts, finished)``."""
+    B, n = first_steps.shape
+    _, J1, Tt = table.shape
+    M = pool_steps.shape[2]
+    dev = first_steps.device
+    flat_table = table.reshape(-1)
+    flat_pool = pool_steps.reshape(-1)
+    tbase = (tix * (J1 * Tt))[:, None]
+    pbase = (pix[:, None] * n + torch.arange(n, device=dev)[None, :]) * M
+    rem = torch.full((B, n), int(job_steps), dtype=torch.int64, device=dev)
+    age = torch.full((B, n), int(age0_idx), dtype=torch.int64, device=dev)
+    draw = torch.zeros((B, n), dtype=torch.int64, device=dev)
+    life = first_steps.clone()
+    done = torch.zeros((B, n), dtype=torch.int64, device=dev)
+    lost = torch.zeros((B, n), dtype=_F64, device=dev)
+    restarts = torch.zeros((B, n), dtype=torch.int64, device=dev)
+
+    def active():
+        return (rem > 0) & (restarts <= max_restarts)
+
+    events = 0
+    while events < max_events and bool(active().any()):
+        for _ in range(min(_CHECK_EVERY, max_events - events)):
+            act = active()
+            i = flat_table[tbase + torch.clamp(rem, 0, J1 - 1) * Tt
+                           + torch.clamp(age, 0, Tt - 1)]
+            i = torch.minimum(torch.clamp(i, min=1), torch.clamp(rem, min=1))
+            w = torch.where(i < rem, i + delta_steps, i)
+            survive = (age + w).to(_F64) <= life
+            # preemption: time since VM start minus checkpointed prefix
+            loss = torch.clamp(life - age.to(_F64), min=0.0)
+            nxt_draw = draw + 1
+            nxt_life = flat_pool[pbase + torch.clamp(nxt_draw,
+                                                     max=max_restarts + 1)]
+            ok = act & survive
+            bad = act & ~survive
+            rem = torch.where(ok, rem - i, rem)
+            age = torch.where(ok, age + w, torch.where(bad, 0, age))
+            draw = torch.where(bad, nxt_draw, draw)
+            life = torch.where(bad, nxt_life, life)
+            done = torch.where(ok, done + w, done)
+            lost = torch.where(bad, lost + loss, lost)
+            restarts = torch.where(bad, restarts + 1, restarts)
+            events += 1
+    return done, lost, restarts, rem == 0
+
+
+def simulate_makespan_batch(policy_table, job_steps: int, *, first, pool,
+                            grid_dt: float = 1.0 / 60.0, delta_steps: int = 1,
+                            start_age: float = 0.0,
+                            restart_overhead: float = 0.0,
+                            max_restarts: int = 64,
+                            max_events: int | None = None,
+                            unfinished: str = "nan",
+                            return_finished: bool = False,
+                            table_index=None, pool_index=None,
+                            device="cuda"):
+    """Execute jobs under pre-drawn lifetimes; returns host float64
+    makespans (hours).
+
+    A preemption mid-segment (work or checkpoint write) loses progress back
+    to the last durable checkpoint and the job resumes on a fresh VM after
+    ``restart_overhead`` hours.  ``pool`` is ``(n_trials, max_restarts+2)``
+    with ``first`` ``(n_trials,)`` and a 2-D ``policy_table``, or has a
+    leading cell axis ``(B, ...)`` with ``first`` ``(B, n_trials)`` and a
+    per-cell ``(B, j, t)`` or shared 2-D table; the result then has the
+    same leading axis.  ``table_index``/``pool_index`` (shape ``(B,)``)
+    instead map each of the B lanes to a ``(U, j, t)`` table of unique
+    tables and a ``(Q, n_trials, max_restarts+2)`` pool of unique pools.
+
+    Trials that exhaust ``max_restarts`` (or the ``max_events`` cap) are
+    reported per ``unfinished``: ``"nan"`` (default), ``"partial"`` (the
+    accumulated time) or ``"raise"``.  ``return_finished=True`` also
+    returns the completion mask.
+    """
+    if unfinished not in ("nan", "partial", "raise"):
+        raise ValueError(f"unfinished must be 'nan', 'partial' or 'raise', "
+                         f"got {unfinished!r}")
+    dev = resolve_device(device)
+    if max_events is None:
+        max_events = int(job_steps) + int(max_restarts) + 2
+    age0_idx = int(round(start_age / grid_dt))
+    off0 = start_age - age0_idx * grid_dt
+    # unit conversion in float64, rounded as the reference's numpy: the
+    # divisor is a device tensor because CUDA divides by a host scalar as a
+    # multiplication by its reciprocal, which rounds differently
+    gdt = torch.tensor(grid_dt, dtype=_F64, device=dev)
+    first_steps = (_on(first, dev, _F64) - off0) / gdt
+    pool_steps = _on(pool, dev, _F64) / gdt
+    table = _on(policy_table, dev, torch.int64)
+    if (table_index is None) != (pool_index is None):
+        raise ValueError("table_index and pool_index must be passed together")
+    single = False
+    if table_index is not None:
+        tix = torch.as_tensor(np.asarray(table_index), dtype=torch.int64,
+                              device=dev)
+        pix = torch.as_tensor(np.asarray(pool_index), dtype=torch.int64,
+                              device=dev)
+        if table.ndim != 3 or pool_steps.ndim != 3:
+            raise ValueError("the indexed fold needs a (U, j, t) policy_table "
+                             "and a (Q, n_trials, max_restarts + 2) pool")
+        if first_steps.ndim != 2 \
+                or not (tix.shape == pix.shape == first_steps.shape[:1]) \
+                or first_steps.shape[1] != pool_steps.shape[1]:
+            raise ValueError(
+                f"indexed fold needs first of shape (B, n_trials) with "
+                f"(B,) table_index/pool_index and a matching pool trial "
+                f"axis; got first {tuple(first_steps.shape)}, pool "
+                f"{tuple(pool_steps.shape)}, table_index {tuple(tix.shape)}, "
+                f"pool_index {tuple(pix.shape)}")
+        if tix.numel() and (int(tix.min()) < 0
+                            or int(tix.max()) >= table.shape[0]):
+            raise ValueError("table_index out of range")
+        if pix.numel() and (int(pix.min()) < 0
+                            or int(pix.max()) >= pool_steps.shape[0]):
+            raise ValueError("pool_index out of range")
+    elif pool_steps.ndim == 3:                   # leading cell axis
+        B = pool_steps.shape[0]
+        if tuple(first_steps.shape) != tuple(pool_steps.shape[:2]):
+            raise ValueError(
+                f"scenario-batched pool {tuple(pool_steps.shape)} needs first "
+                f"of shape {tuple(pool_steps.shape[:2])}, got "
+                f"{tuple(first_steps.shape)}")
+        pix = torch.arange(B, device=dev)
+        if table.ndim == 3:
+            if table.shape[0] != B:
+                raise ValueError(f"per-cell policy_table has "
+                                 f"{table.shape[0]} tables for {B} cells")
+            tix = pix
+        else:
+            table, tix = table[None], torch.zeros_like(pix)
+    elif table.ndim == 3:
+        raise ValueError("per-scenario policy_table needs a scenario-batched "
+                         "pool (S, n_trials, max_restarts + 2)")
+    else:
+        single = True
+        table, pool_steps, first_steps = (table[None], pool_steps[None],
+                                          first_steps[None])
+        tix = pix = torch.zeros(1, dtype=torch.int64, device=dev)
+    done, lost, restarts, finished = _event_loop(
+        table, tix, pool_steps, pix, first_steps, job_steps, age0_idx,
+        delta_steps, max_restarts, max_events)
+    done = done.cpu().numpy().astype(np.float64)
+    lost = lost.cpu().numpy()
+    restarts = restarts.cpu().numpy().astype(np.float64)
+    finished = finished.cpu().numpy()
+    if single:
+        done, lost, restarts, finished = done[0], lost[0], restarts[0], \
+            finished[0]
+    out = (done + lost) * grid_dt + restarts * restart_overhead
+    if not finished.all():
+        if unfinished == "raise":
+            raise RuntimeError(
+                f"{int((~finished).sum())}/{finished.size} trials exited "
+                f"unfinished (max_restarts={max_restarts}, "
+                f"max_events={max_events})")
+        if unfinished == "nan":
+            out = np.where(finished, out, np.nan)
+    if return_finished:
+        return out, finished
+    return out

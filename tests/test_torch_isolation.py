@@ -1,0 +1,80 @@
+"""The PyTorch port stands alone: no module of ``src/repro_torch`` (nor
+``chip_smoke.py``) imports ``jax`` or ``repro``, every module imports with
+both made unimportable, and an entry point left at its default device
+raises where there is no GPU instead of running on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_module_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imported_modules(path):
+            top = name.split(".")[0]
+            assert top not in FORBIDDEN, \
+                f"{path.relative_to(ROOT)} imports {name}"
+
+
+def test_every_module_imports_without_jax_or_repro():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            repro_torch.__path__, "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        print(len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) >= 14
+
+
+def test_default_device_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable here")
+    from repro_torch import resolve_device
+    from repro_torch.core import distributions as TD
+    from repro_torch.core import engine, scenarios
+    from repro_torch.core.policies import checkpointing
+    d = TD.constrained_for()
+    calls = [
+        lambda: resolve_device(),
+        lambda: checkpointing.solve_batch([d], 4, grid_dt=1.0),
+        lambda: checkpointing.solve(d, 4, grid_dt=1.0),
+        lambda: engine.draw_lifetime_pool_batch([d], 4),
+        lambda: engine.simulate_makespan_batch(
+            engine.no_checkpoint_policy_table(4), 4, first=[1.0],
+            pool=[[1.0, 1.0]], max_restarts=0),
+        lambda: scenarios.sweep_checkpointing(scenarios.default_grid()[:1],
+                                              job_steps=4, n_trials=2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert resolve_device("cpu") == torch.device("cpu")
