@@ -6,7 +6,9 @@
 Phases, each of which exits nonzero on failure:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
-2. Build: compiles ``kernels/csrc/dp_recurrence.cu`` with nvcc (first use).
+2. Build: compiles the four kernels of ``kernels/csrc/`` (dp_recurrence,
+   flash_attention, decode_attention, rglru_scan) with nvcc, one process
+   per source, all started together, and prints what ``-Xptxas -v`` says.
 3. Kernel vs plain: ``dp_recurrence`` against ``dp_recurrence_plain`` on the
    same CUDA inputs - 8 default-grid scenarios at J = 60, dt = 1/12 (both
    objectives) and at the main-path size J = 300, dt = 1/60 (makespan).
@@ -22,6 +24,34 @@ Phases, each of which exits nonzero on failure:
    on one shared pool.
 5. Timing: medians of 5 runs after a warm-up (CUDA events for the DP solves,
    host clock plus synchronize for the rest).
+6. Serving kernels vs plain: flash_attention, decode_attention and
+   linear_recurrence against their plain versions on the same CUDA inputs,
+   at the serving path's shapes in bf16 and at further cases (float32, a
+   ragged length, llama3.2-1b's full-causal GQA shape, Sq < Sk, mixed
+   decode lengths, the recurrence with and without h0 and at S = 1).
+   Tolerances: float32 within rtol = atol = 1e-5 (summation order only);
+   bf16 within 2 bf16 ulps of the plain result (both compute in float32
+   and round once, so they differ only where float32 sums in another order
+   fall on either side of a rounding boundary); h_last equal to h[:, -1].
+7. Serving path: recurrentgemma-2b at full width and depth, weights from a
+   seeded torch.Generator on the card, through ``launch/serve.py``: 4
+   batches, each admitted by ``PreemptionSource.reuse_decision``, of 8
+   prompts x 2048 tokens, 32 greedy tokens each, with the three kernels'
+   launch counters reset just before and read just after (8, 248 and 576
+   a batch).  Checks: every logit of a prefill and its 31 decode steps is
+   finite; decode step 1's logits match a full forward over prompt + 1
+   tokens (S = 2049) within LOGIT_TOL_BF16 in bf16, and within
+   LOGIT_TOL_F32 with the same weights in float32 (B = 2), the greedy
+   tokens agreeing wherever the top-2 margin exceeds the tolerance; at 3
+   layers (one period), full width, float32, B = 2, prompt 64, 8 tokens,
+   the card's logits match the port on the CPU within LOGIT_TOL_F32, and
+   the greedy tokens agree wherever the top-2 margin exceeds it.
+8. Serving timing: prefill ms (time to first token), decode ms per step and
+   tokens/s, peak device memory, and each kernel's, its plain version's and
+   a PyTorch call's time at the serving shapes (CUDA-graph replays, medians
+   of 5 after a warm-up) beside its bound; a torch.profiler window over one
+   prefill and over one batch's decode steps for the device's busy share
+   and the kernels that take the time.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -45,6 +75,25 @@ OPS_PER_CANDIDATE = 20         # f32 operations per (candidate, lane), a
                                # division counted as one
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_LANES_PER_SM = 128        # FP32 units per Hopper SM, 2 ops per FMA
+BF16_TENSOR_OPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+KERNELS = ("dp_recurrence", "flash_attention", "decode_attention",
+           "rglru_scan")
+
+# the serving cell: recurrentgemma-2b, 4 batches of 8 x 2048-token prompts,
+# 32 greedy tokens each
+ARCH, BATCHES, BATCH, PROMPT, N_DECODE = "recurrentgemma-2b", 4, 8, 2048, 32
+# Decode step 1 against a full forward in bf16, logits of spread ~1: the
+# decode path rounds the RG-LRU state to bf16 between steps in each of the
+# 18 recurrent layers (as repro does), and cuBLAS sums the products of one
+# row and of 2049 rows in different orders; with 8 significant bits these
+# drift over 26 layers by up to 0.21 (measured on an H100, 8 x 256,000
+# logits).  The float32 run of the same check is the strict one.
+LOGIT_TOL_BF16 = 0.5
+# Float32 (the card against the CPU at 3 layers, and decode against the
+# full forward at full depth): sums run in other orders (cuBLAS, the
+# kernels' online softmax, the CPU) and move logits of order one by
+# ~1e-5.
+LOGIT_TOL_F32 = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -92,6 +141,66 @@ def host_ms(torch, fn, reps=5):
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
+
+def graph_ms(torch, calls, reps=5):
+    """Median device time per call of ``calls``, captured back to back in
+    one CUDA graph and replayed (after an eager warm-up and one replay), so
+    the host's launch overhead is not in the number: CUDA events around an
+    eager call of a small kernel time its Python wrapper instead."""
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for call in calls:
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / len(calls))
+    return statistics.median(times)
+
+def profile_window(torch, fn, top=8):
+    """Run ``fn`` once under torch.profiler (CPU and CUDA activity).
+    Returns the wall ms, the ms in which some device activity ran (the
+    union of the device events' intervals; None when the profiler saw
+    none) and the ``top`` device events by summed time as (name, ms,
+    count).  Only device-side events count: a CPU operator's device time
+    repeats its kernels'."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        spans.append((a, b))
+        name = re.sub(r"^void |\(anonymous namespace\)::", "", e.name)[:60]
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + (b - a) / 1e3, n + 1)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    rows = sorted(((k, ms, n) for k, (ms, n) in by_name.items()),
+                  key=lambda r: -r[1])
+    return wall_ms, (busy_us / 1e3 if spans else None), rows[:top]
 
 def dp_inputs(torch, grids, dists, job_steps, grid_dt, price=None):
     """Keyword arguments of one ``dp_recurrence`` call, as
@@ -146,6 +255,399 @@ def fp32_peak_ops(torch):
         clock_hz
 
 
+# ---------------------------------------------------------------------------
+# the serving slice
+# ---------------------------------------------------------------------------
+
+def bf16_ulps(torch, got, want):
+    """Largest |got - want| in bf16 ulps of want's magnitude (the ulp taken
+    at no less than 2^-8's, so values near zero are not held to tinier
+    steps than bf16 has near its typical outputs)."""
+    mag = want.float().abs().clamp_min(2.0 ** -8)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def agree(torch, label, got, want):
+    """Hold a kernel's output to its plain version's: float32 within
+    rtol = atol = 1e-5, bf16 within 2 ulps.  Returns max |got - want|."""
+    err = float((got.float() - want.float()).abs().max())
+    if want.dtype == torch.bfloat16:
+        ulps = bf16_ulps(torch, got, want)
+        print(f"[serve-kernels] {label}: max|d| = {err:.3e}, "
+              f"{ulps:.2f} bf16 ulps (need <= 2)")
+        check(ulps <= 2.0, f"{label}: {ulps} bf16 ulps from the plain version")
+    else:
+        print(f"[serve-kernels] {label}: max|d| = {err:.3e} (need "
+              f"rtol = atol = 1e-5)")
+        check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)),
+              f"{label}: differs beyond rtol = atol = 1e-5")
+    return err
+
+
+def serving_kernels_vs_plain(torch):
+    """Phase 6; returns each kernel's largest error and its main-shape
+    inputs."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rglru_scan import (linear_recurrence,
+                                                linear_recurrence_plain)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def normal(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    errs = {"flash_attention": 0.0, "decode_attention": 0.0,
+            "linear_recurrence": 0.0}
+    main = {}
+    flash_cases = [
+        # label, B, Sq, Sk, H, KV, D, window, dtype
+        ("serving prefill", BATCH, PROMPT, PROMPT, 10, 1, 256, 2048, bf16),
+        ("ragged S=2049", 2, 2049, 2049, 10, 1, 256, 2048, bf16),
+        ("llama3.2-1b full causal", 1, 2048, 2048, 32, 8, 64, 0, bf16),
+        ("float32 window 128", 2, 512, 512, 4, 2, 128, 128, f32),
+        ("Sq < Sk float32", 2, 100, 300, 4, 1, 256, 0, f32),
+    ]
+    for label, B, Sq, Sk, H, KV, D, window, dt in flash_cases:
+        q = normal(B, Sq, H, D, dtype=dt)
+        k, v = normal(B, Sk, KV, D, dtype=dt), normal(B, Sk, KV, D, dtype=dt)
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        errs["flash_attention"] = max(errs["flash_attention"], agree(
+            torch, f"flash {label} {tuple(q.shape)} {dt}", got, want))
+        if label == "serving prefill":
+            main["flash_attention"] = (q, k, v, window)
+    S = PROMPT
+    decode_cases = [
+        ("serving decode", BATCH, S, 10, 1, 256, [S] * BATCH, bf16),
+        ("mixed lengths", BATCH, S, 10, 1, 256,
+         [1, 7, 64, 65, 1000, 2047, 2048, 130], bf16),
+        ("float32 GQA", 3, 300, 32, 8, 64, [300, 1, 150], f32),
+    ]
+    for label, B, S_, H, KV, D, lens, dt in decode_cases:
+        q = normal(B, H, D, dtype=dt)
+        kc, vc = normal(B, S_, KV, D, dtype=dt), normal(B, S_, KV, D, dtype=dt)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        got = decode_attention(q, kc, vc, lengths)
+        want = decode_attention_plain(q, kc, vc, lengths)
+        errs["decode_attention"] = max(errs["decode_attention"], agree(
+            torch, f"decode {label} {tuple(kc.shape)} {dt}", got, want))
+        if label == "serving decode":
+            main["decode_attention"] = (q, kc, vc, lengths)
+    W = 2560
+    rec_cases = [
+        ("serving prefill", BATCH, S, W, True, bf16),
+        ("no h0", BATCH, S, W, False, bf16),
+        ("serving decode S=1", BATCH, 1, W, True, bf16),
+        ("float32", 2, 300, 1000, False, f32),
+    ]
+    for label, B, S_, W_, with_h0, dt in rec_cases:
+        a = (0.5 + 0.5 * torch.rand((B, S_, W_), generator=gen,
+                                    device="cuda")).to(dt)
+        b = normal(B, S_, W_, dtype=dt)
+        h0 = normal(B, W_, dtype=dt) if with_h0 else None
+        h, h_last = linear_recurrence(a, b, h0)
+        want_h, want_last = linear_recurrence_plain(a, b, h0)
+        check(bool(torch.equal(h_last, h[:, -1])),
+              f"recurrence {label}: h_last != h[:, -1]")
+        err = max(agree(torch, f"recurrence {label} {tuple(a.shape)} {dt}",
+                        h, want_h),
+                  agree(torch, f"recurrence {label} h_last", h_last,
+                        want_last))
+        errs["linear_recurrence"] = max(errs["linear_recurrence"], err)
+        if label == "serving prefill":
+            main["linear_recurrence"] = (a, b, h0)
+    return errs, main
+
+
+def greedy_run(torch, model, prompts, n_decode, feed=None):
+    """Prefill + (n_decode - 1) greedy decode steps through the port's
+    steps; returns every step's last-position logits (float32) and the
+    tokens.  ``feed`` forces the tokens fed back (teacher forcing)."""
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    B, S = prompts.shape
+    cache = model.init_cache(B, S + n_decode)
+    logits, cache = steps.make_prefill_step(cfg)(model, cache,
+                                                  {"tokens": prompts})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    out_logits, out_toks = [logits[:, -1].float()], [tok]
+    decode = steps.make_decode_step(cfg)
+    for i in range(n_decode - 1):
+        fed = tok if feed is None else feed[:, i]
+        logits, tok, cache = decode(model, cache, {"tokens": fed[:, None]})
+        out_logits.append(logits[:, -1].float())
+        out_toks.append(tok)
+    return torch.stack(out_logits, 1), torch.stack(out_toks, 1)
+
+
+def decode_vs_full(torch, model, prompts, tol):
+    """Decode step 1's logits (after a prefill of ``prompts`` and the
+    greedy token) against a full forward over prompts + that token: the
+    largest difference must stay within ``tol``, and the greedy tokens
+    agree wherever the top-2 margin exceeds it.  Returns the largest
+    difference."""
+    logits, toks = greedy_run(torch, model, prompts, 2)
+    full, _ = model(torch.cat([prompts, toks[:, :1].long()], dim=1),
+                    last_only=True)
+    full, dec = full[:, 0].float(), logits[:, 1]
+    diff = (full - dec).abs()
+    top2 = full.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > tol
+    same = bool((full.argmax(-1) == dec.argmax(-1))[decided].all())
+    rel_rms = float(diff.square().mean().sqrt() / full.square().mean().sqrt())
+    print(f"[serve] {model.cfg.compute_dtype}, B = {prompts.shape[0]}: "
+          f"decode step 1 vs full forward (S = {prompts.shape[1] + 1}): "
+          f"max|d logit| = {float(diff.max()):.4g}, mean "
+          f"{float(diff.mean()):.3g}, rms relative to the logits' "
+          f"{rel_rms:.3g} (need max <= {tol});"
+          f" argmax equal where the top-2 margin > {tol}: {same} "
+          f"({int(decided.sum())} of {decided.numel()} rows)")
+    check(float(diff.max()) <= tol, f"decode vs full forward: {diff.max()}")
+    check(same, "decode and full forward pick different greedy tokens")
+    return float(diff.max())
+
+
+def serving_path(torch):
+    """Phase 7; returns the model, the launch counts and the checks'
+    numbers."""
+    import copy
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import linear_recurrence
+    counters = (flash_attention, decode_attention, linear_recurrence)
+
+    cfg = configs.get(ARCH)
+    t0 = time.perf_counter()
+    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[serve] {ARCH}: {cfg.n_layers} layers {model.kinds[:3]}..., "
+          f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+          f"drawn in {time.perf_counter() - t0:.3f} s")
+    check(n_params == cfg.param_count(), "parameter count")
+
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    records = serve.serve(cfg, model, batches=BATCHES, batch_size=BATCH,
+                          prompt_len=PROMPT, n_decode=N_DECODE,
+                          device="cuda")
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    n_attn = model.kinds.count("local_attn")
+    n_rec = model.kinds.count("rglru")
+    want = {"flash_attention": BATCHES * n_attn,
+            "decode_attention": BATCHES * n_attn * (N_DECODE - 1),
+            "linear_recurrence": BATCHES * n_rec * N_DECODE}
+    print(f"[serve] {BATCHES} batches of {BATCH} x {PROMPT} tokens, "
+          f"{N_DECODE} greedy tokens each, in {serve_s:.2f} s "
+          f"({[round(r['seconds'], 3) for r in records]} s; rotated "
+          f"{[r['rotated'] for r in records]}); launches {launches}, "
+          f"expected {want}; peak {peak_bytes / 1e9:.2f} GB")
+    check(launches == want, f"launch counts {launches} != {want}")
+    for r in records:
+        toks = r["tokens"]
+        check(tuple(toks.shape) == (BATCH, N_DECODE), "token shape")
+        check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              "tokens out of the vocabulary")
+
+    # every logit of one served batch, and decode step 1 against a full
+    # forward over the prompt and the first generated token, in bf16 and,
+    # with the same weights held in float32, in float32 (B = 2)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)), device="cuda")
+    logits, _ = greedy_run(torch, model, prompts, N_DECODE)
+    check(bool(torch.isfinite(logits).all()), "non-finite serving logits")
+    d_full = decode_vs_full(torch, model, prompts, LOGIT_TOL_BF16)
+    model32 = T.init(dataclasses.replace(cfg, compute_dtype="float32"),
+                     torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    d_full32 = decode_vs_full(torch, model32, prompts[:2], LOGIT_TOL_F32)
+    del model32
+
+    # one period at full width in float32: the card against the CPU
+    cfg3 = dataclasses.replace(cfg, n_layers=len(cfg.block_pattern),
+                               compute_dtype="float32")
+    model3 = T.init(cfg3, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    check(bool(torch.equal(model3.layers[0]["in_x"].bfloat16(),
+                           model.layers[0]["in_x"])),
+          "the 3-layer model does not share the full model's weights")
+    cpu3 = copy.deepcopy(model3).to("cpu")
+    p3 = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 64)), device="cuda")
+    lg_gpu, tk_gpu = greedy_run(torch, model3, p3, 8)
+    lg_cpu, tk_cpu = greedy_run(torch, cpu3, p3.cpu(), 8, feed=tk_gpu.cpu())
+    d_cpu = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    top2 = lg_cpu.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL_F32
+    same = bool((tk_gpu.cpu() == tk_cpu)[decided].all())
+    print(f"[serve] 3 layers float32, card vs CPU: max|d logit| = "
+          f"{d_cpu:.3e} (need <= {LOGIT_TOL_F32}); tokens equal where the "
+          f"top-2 margin > {LOGIT_TOL_F32}: {same} "
+          f"({int(decided.sum())} of {decided.numel()} decided)")
+    check(d_cpu <= LOGIT_TOL_F32, f"card vs CPU logits {d_cpu}")
+    check(same, "greedy tokens differ between the card and the CPU")
+    del model3, cpu3
+    return model, launches, {"serve_s": serve_s, "peak_bytes": peak_bytes,
+                             "decode_vs_full_max_abs": d_full,
+                             "decode_vs_full_f32_max_abs": d_full32,
+                             "card_vs_cpu_max_abs": d_cpu}
+
+
+def serving_timing(torch, model, main_inputs):
+    """Phase 8: the serving metrics and each kernel's times and bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rglru_scan import (linear_recurrence,
+                                                linear_recurrence_plain)
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    prompts = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)), device="cuda")
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+
+    def first_token():
+        cache = model.init_cache(BATCH, PROMPT + N_DECODE)
+        logits, cache = prefill(model, cache, {"tokens": prompts})
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+
+    prefill_ms = host_ms(torch, first_token)
+    step_ms = []
+    for _ in range(6):                       # the first is the warm-up
+        tok, cache = first_token()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_DECODE - 1):
+            _, tok, cache = decode(model, cache, {"tokens": tok[:, None]})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / (N_DECODE - 1))
+    decode_ms = statistics.median(step_ms[1:])
+
+    # Device times from CUDA-graph replays (graph_ms), and for the kernels
+    # also the eager time of one call, the Python wrapper included.  The
+    # decode calls rotate over 4 copies of the cache (67 MB, more than the
+    # 50 MB L2), as the serving path finds each layer's cache cold.
+    q, k, v, window = main_inputs["flash_attention"]
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    pairs = int(mask.sum())
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    flash = {
+        "ms": graph_ms(torch, [lambda: flash_attention(q, k, v,
+                                                       window=window)] * 3),
+        "eager_ms": cuda_ms(torch, lambda: flash_attention(q, k, v,
+                                                           window=window)),
+        "plain_ms": graph_ms(torch, [lambda: flash_attention_plain(
+            q, k, v, window=window)]),
+        "library_ms": graph_ms(torch, [
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)] * 3),
+        "ops": 4 * D * pairs * B * H,
+        "bytes": 2 * q.numel() * q.element_size() + 2 * k.numel()
+        * k.element_size()}
+    flash["bound_fp32_ms"] = flash["ops"] / fp32_peak_ops(torch)[0] * 1e3
+
+    dec = [tuple(x.clone() for x in main_inputs["decode_attention"])
+           for _ in range(4)]
+    qd, kc, vc, lengths = dec[0]
+    valid = torch.arange(kc.shape[1], device="cuda")[None, :] < lengths[:, None]
+    lib = [(x[0][:, :, None], x[1].transpose(1, 2), x[2].transpose(1, 2),
+            valid[:, None, None, :]) for x in dec]
+    n_valid = int(lengths.sum())
+    decode_k = {
+        "ms": graph_ms(torch, [lambda x=x: decode_attention(*x)
+                               for x in dec]),
+        "eager_ms": cuda_ms(torch, lambda: decode_attention(*dec[0])),
+        "plain_ms": graph_ms(torch, [lambda x=x: decode_attention_plain(*x)
+                                     for x in dec]),
+        "library_ms": graph_ms(torch, [
+            lambda x=x: F.scaled_dot_product_attention(
+                x[0], x[1], x[2], attn_mask=x[3], enable_gqa=True)
+            for x in lib]),
+        "ops": 4 * qd.shape[2] * n_valid * qd.shape[1],
+        "bytes": 2 * qd.numel() * qd.element_size() + 2 * n_valid * KV
+        * qd.shape[2] * kc.element_size() + lengths.numel() * 4}
+
+    a, b, h0 = main_inputs["linear_recurrence"]
+    a1, b1 = a[:, :1].contiguous(), b[:, :1].contiguous()
+    rec = {
+        "ms": graph_ms(torch, [lambda: linear_recurrence(a, b, h0)] * 3),
+        "eager_ms": cuda_ms(torch, lambda: linear_recurrence(a, b, h0)),
+        "plain_ms": graph_ms(torch, [lambda: linear_recurrence_plain(a, b,
+                                                                     h0)]),
+        "library_ms": None,
+        "ops": 2 * a.numel(),
+        "bytes": 3 * a.numel() * a.element_size()
+        + 2 * h0.numel() * h0.element_size(),
+        "decode_step_ms": graph_ms(torch, [
+            lambda: linear_recurrence(a1, b1, h0)] * 10),
+        "decode_step_eager_ms": cuda_ms(torch, lambda: linear_recurrence(
+            a1, b1, h0))}
+    for name, r in (("flash_attention", flash),
+                    ("decode_attention", decode_k),
+                    ("linear_recurrence", rec)):
+        t_ops = r["ops"] / BF16_TENSOR_OPS * 1e3
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[timing] {name}: {r['ms']:.4f} ms (eager call "
+              f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: {r['ops']:.4g} ops, {r['bytes']:.4g} B)")
+    print(f"[timing] flash_attention float32 CUDA-core bound "
+          f"{flash['bound_fp32_ms']:.3f} ms; recurrence at S = 1 "
+          f"{rec['decode_step_ms']:.4f} ms (eager call "
+          f"{rec['decode_step_eager_ms']:.4f} ms)")
+    serving = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+               "decode_tokens_per_s": BATCH / (decode_ms / 1e3),
+               "decode_steps_ms": step_ms[1:]}
+
+    # where the time goes: one prefill and one batch's decode steps under
+    # the profiler (device busy share = summed kernel time / wall time)
+    box = {}
+
+    def prefill_once():
+        box["tok"], box["cache"] = first_token()
+
+    def decode_all():
+        tok, cache = box["tok"], box["cache"]
+        for _ in range(N_DECODE - 1):
+            _, tok, cache = decode(model, cache, {"tokens": tok[:, None]})
+
+    for label, fn in (("prefill", prefill_once), ("decode", decode_all)):
+        wall, dev_ms, rows = profile_window(torch, fn)
+        busy = None if dev_ms is None else dev_ms / wall
+        serving[f"{label}_profiled_wall_ms"] = wall
+        serving[f"{label}_device_ms"] = dev_ms
+        serving[f"{label}_device_busy_share"] = busy
+        print(f"[profile] {label}: wall {wall:.2f} ms, device busy "
+              f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms (share "
+              f"{busy if busy is None else round(busy, 4)}); device events:")
+        for name, ms, calls in rows:
+            print(f"[profile] {label}   {ms:9.3f} ms  {calls:5d} x  {name}")
+    return serving, {"flash_attention": flash, "decode_attention": decode_k,
+                     "linear_recurrence": rec}
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -158,6 +660,9 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    # float32 products in full float32 on the card, as on the CPU
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
     from repro_torch.core import engine, scenarios
     from repro_torch.core.policies import checkpointing
     from repro_torch.core.policies.solver_backends import grids
@@ -166,18 +671,20 @@ def main() -> int:
                                                    dp_recurrence_plain)
 
     # -- 1. device ----------------------------------------------------------
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
-    print(f"[device] torch: {name}; count {torch.cuda.device_count()}; "
+    print(f"[device] torch: {device_name}; count {torch.cuda.device_count()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
-    path, log = _build.build("dp_recurrence")
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        print(f"[build] {line}")
+    built = _build.build_many(KERNELS)
+    print(f"[build] {', '.join(p.name for p, _ in built.values())} in "
+          f"{time.perf_counter() - t0:.1f} s (in parallel)")
+    for kname, (_, log) in built.items():
+        for line in log.splitlines():
+            print(f"[build] {kname}: {line}")
 
     # -- 3. kernel against its plain version ------------------------------
     grid = scenarios.default_grid()
@@ -296,9 +803,38 @@ def main() -> int:
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": None,
     }
-    print(json.dumps({"kernels": [kernel]}))
+
+    # -- 6. serving kernels against their plain versions ---------------------
+    errs, main_inputs = serving_kernels_vs_plain(torch)
+
+    # -- 7. the serving path -------------------------------------------------
+    model, serve_launches, serve_checks = serving_path(torch)
+
+    # -- 8. serving timing ---------------------------------------------------
+    serving, ktimes = serving_timing(torch, model, main_inputs)
+    serving.update(serve_checks)
+    serving["card"] = smi
+    print("[timing] serving " + json.dumps(serving))
+    sources = {
+        "flash_attention": ("flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:89"),
+        "decode_attention": ("decode_attention.cu",
+                             "src/repro/kernels/decode_attention.py:73"),
+        "linear_recurrence": ("rglru_scan.cu",
+                              "src/repro/kernels/rglru_scan.py:52")}
+    kernels = [kernel]
+    for kname, (cu, replaces) in sources.items():
+        t = ktimes[kname]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{cu}",
+            "replaces": replaces, "launches": serve_launches[kname],
+            "max_abs_err": errs[kname], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

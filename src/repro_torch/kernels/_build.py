@@ -3,11 +3,12 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  :func:`build` compiles it
 with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``kernels/build/`` (listed in ``.gitignore``), named by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused.  :func:`load` opens it with ``ctypes``; the wrapper that calls
-it declares the ``argtypes``.  Building happens at first use, never at
-import: machines without ``nvcc`` import this package and run the plain
-PyTorch versions.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  :func:`build_many`
+starts one ``nvcc`` per source at once.  :func:`load` opens a library with
+``ctypes``; the wrapper that calls it declares the ``argtypes``.  Building
+happens at first use, never at import: machines without ``nvcc`` import
+this package and run the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -21,12 +22,21 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# -fmad=false: every multiply and add rounds on its own, as in the plain
-# PyTorch versions, so a kernel agrees with its plain version to the bit
-# instead of flipping near-tied argmins where an FMA rounds once.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# -fmad=false: every multiply and add rounds on its own, as in the plain
+# PyTorch versions, so the DP kernel agrees with its plain version to the
+# bit instead of flipping near-tied argmins where an FMA rounds once, and
+# the recurrence's a * h + b rounds as the plain loop's does.  The two
+# attention kernels keep FMA contraction: their dot products are summed in
+# another order than PyTorch's matmul anyway, so they are held to their
+# plain versions by a tolerance, and contraction halves their instruction
+# count where operations bound them.
+EXACT_ROUNDING = {"dp_recurrence", "rglru_scan"}
+
+
+def flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + (("-fmad=false",) if name in EXACT_ROUNDING else ())
 
 
 def _nvcc() -> str:
@@ -41,26 +51,47 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_many(names) -> dict[str, tuple[Path, str]]:
+    """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` process per source, all started together.  Returns, for each
+    name, the library's path and the compiler's output ("" when the
+    library was already there)."""
+    out, procs = {}, {}
+    for name in dict.fromkeys(names):
+        path = library_path(name)
+        if path.exists():
+            out[name] = (path, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (path, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (path, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, path)
+        out[name] = (path, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` unless its library is already built.
     Returns the library's path and the compiler's output ("" when the
     library was already there)."""
-    path = library_path(name)
-    if path.exists():
-        return path, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    return build_many([name])[name]
 
 
 @functools.cache

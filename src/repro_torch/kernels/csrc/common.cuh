@@ -1,0 +1,82 @@
+// Helpers shared by the attention and recurrence kernels: conversion between
+// the storage type (float or __nv_bfloat16) and float, and 16-byte loads.
+//
+// Every kernel computes in float and rounds to the storage type once, on
+// the way out; __float2bfloat16_rn rounds to nearest even, as PyTorch's
+// float -> bfloat16 cast does.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace kern {
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Vec<T>::N elements of T fill 16 bytes; load() converts them to float.
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+  }
+};
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* out) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+};
+
+// E consecutive elements of T at p, as float: 16-byte loads where E fills
+// them, element loads otherwise (p must be aligned to the loads' width).
+template <typename T, int E>
+__device__ __forceinline__ void load_f32(const T* p, float* out) {
+  constexpr int N = Vec<T>::N;
+  if constexpr (E % N == 0) {
+#pragma unroll
+    for (int i = 0; i < E; i += N) Vec<T>::load(p + i, out + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) out[i] = to_f32(p[i]);
+  }
+}
+
+// Four consecutive outputs, rounded to T.
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(a, b);
+  q[1] = __floats2bfloat162_rn(c, d);
+}
+
+}  // namespace kern

@@ -1,0 +1,24 @@
+"""The attention and recurrence hot spots the models call.
+
+Counterpart of ``repro.kernels.ops``.  There the caller picks one of
+several implementations with ``impl=`` (``cfg.attention_impl`` for
+prefill), and the Pallas kernels are the TPU route.  The port has one
+route per device, chosen in each kernel's wrapper: a CUDA tensor goes to
+the hand-written kernel, a CPU tensor to the kernel's plain PyTorch
+version, and any other device raises.  So there is no ``impl=`` knob, and
+``ModelConfig.attention_impl``, kept in the copied dataclass, is not read.
+
+    attention(q, k, v, *, causal=True, window=0, scale=None)
+        prefill attention; q (B, Sq, H, D), k, v (B, Sk, KV, D)
+    decode_attention(q, k_cache, v_cache, lengths, *, scale=None)
+        one new token; q (B, H, D), caches (B, S, KV, D), lengths (B,)
+    linear_recurrence(a, b, h0=None)
+        h_t = a_t * h_{t-1} + b_t over axis 1; a, b (B, S, W)
+"""
+from __future__ import annotations
+
+from .decode_attention import decode_attention
+from .flash_attention import flash_attention as attention
+from .rglru_scan import linear_recurrence
+
+__all__ = ["attention", "decode_attention", "linear_recurrence"]

@@ -58,11 +58,15 @@ def test_every_module_imports_without_jax_or_repro():
 def test_default_device_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
-    from repro_torch import resolve_device
+    from repro_torch import configs, resolve_device
     from repro_torch.core import distributions as TD
     from repro_torch.core import engine, scenarios
     from repro_torch.core.policies import checkpointing
+    from repro_torch.fault import PreemptionSource
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer, weights
     d = TD.constrained_for()
+    cfg = configs.smoke("recurrentgemma-2b")
     calls = [
         lambda: resolve_device(),
         lambda: checkpointing.solve_batch([d], 4, grid_dt=1.0),
@@ -73,6 +77,11 @@ def test_default_device_raises_without_a_gpu():
             pool=[[1.0, 1.0]], max_restarts=0),
         lambda: scenarios.sweep_checkpointing(scenarios.default_grid()[:1],
                                               job_steps=4, n_trials=2),
+        lambda: transformer.init(cfg, torch.Generator()),
+        lambda: weights.from_jax_params(cfg, {}),
+        lambda: serve.serve_batch(cfg, None, [[1, 2, 3]]),
+        lambda: serve.main(["--arch", "recurrentgemma-2b", "--smoke"]),
+        lambda: PreemptionSource(d),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
