@@ -8,7 +8,10 @@ Phases, each of which exits nonzero on failure:
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: compiles the four kernels of ``kernels/csrc/`` (dp_recurrence,
    flash_attention, decode_attention, rglru_scan) with nvcc, one process
-   per source, all started together, and prints what ``-Xptxas -v`` says.
+   per source, all started together, and prints what ``-Xptxas -v`` says
+   and, where the toolkit has ``cuobjdump``, the tensor-core instructions
+   in each attention library's SASS (HGMMA for wgmma, HMMA for mma.sync):
+   flash_attention must hold HGMMA and decode_attention HMMA.
 3. Kernel vs plain: ``dp_recurrence`` against ``dp_recurrence_plain`` on the
    same CUDA inputs - 8 default-grid scenarios at J = 60, dt = 1/12 (both
    objectives) and at the main-path size J = 300, dt = 1/60 (makespan).
@@ -30,9 +33,12 @@ Phases, each of which exits nonzero on failure:
    ragged length, llama3.2-1b's full-causal GQA shape, Sq < Sk, mixed
    decode lengths, the recurrence with and without h0 and at S = 1).
    Tolerances: float32 within rtol = atol = 1e-5 (summation order only);
-   bf16 within 2 bf16 ulps of the plain result (both compute in float32
-   and round once, so they differ only where float32 sums in another order
-   fall on either side of a rounding boundary); h_last equal to h[:, -1].
+   bf16 within 2 bf16 ulps of the plain result (the plain versions compute
+   in float32 and round once; the attention kernels sum bf16 products in
+   float on the tensor cores and pass P through them as bf16 hi + lo
+   halves, ~2^-17 relative, so they differ only where sums in another
+   order fall on either side of a rounding boundary); h_last equal to
+   h[:, -1].
 7. Serving path: recurrentgemma-2b at full width and depth, weights from a
    seeded torch.Generator on the card, through ``launch/serve.py``: 4
    batches, each admitted by ``PreemptionSource.reuse_decision``, of 8
@@ -49,9 +55,10 @@ Phases, each of which exits nonzero on failure:
 8. Serving timing: prefill ms (time to first token), decode ms per step and
    tokens/s, peak device memory, and each kernel's, its plain version's and
    a PyTorch call's time at the serving shapes (CUDA-graph replays, medians
-   of 5 after a warm-up) beside its bound; a torch.profiler window over one
-   prefill and over one batch's decode steps for the device's busy share
-   and the kernels that take the time.
+   of 5 after a warm-up) beside its bound, and the decode call's device
+   events under torch.profiler (one launch a call); a torch.profiler
+   window over one prefill and over one batch's decode steps for the
+   device's busy share and the kernels that take the time.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -110,6 +117,20 @@ def nvidia_smi(query: str) -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def tensor_core_ops(path):
+    """Counts of HGMMA (wgmma) and HMMA (mma.sync) instructions in a built
+    library's SASS, or None where the toolkit has no cuobjdump."""
+    import os
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return {"HGMMA": sass.count("HGMMA"), "HMMA": sass.count("HMMA")}
 
 
 def cuda_ms(torch, fn, reps=5):
@@ -588,6 +609,19 @@ def serving_timing(torch, model, main_inputs):
         "bytes": 2 * qd.numel() * qd.element_size() + 2 * n_valid * KV
         * qd.shape[2] * kc.element_size() + lengths.numel() * 4}
 
+    def decode_rounds():
+        for _ in range(25):
+            for x in dec:
+                decode_attention(*x)
+
+    decode_rounds()
+    _, _, rows = profile_window(torch, decode_rounds)
+    decode_k["profile"] = [(name, ms * 1e3 / n, n) for name, ms, n in rows]
+    print(f"[timing] decode_attention graph replay {decode_k['ms'] * 1e3:.2f}"
+          f" us a call; its device events under torch.profiler (100 eager "
+          f"calls): " + "; ".join(f"{name} {us:.2f} us x {n}"
+                                  for name, us, n in decode_k["profile"]))
+
     a, b, h0 = main_inputs["linear_recurrence"]
     a1, b1 = a[:, :1].contiguous(), b[:, :1].contiguous()
     rec = {
@@ -685,6 +719,13 @@ def main() -> int:
     for kname, (_, log) in built.items():
         for line in log.splitlines():
             print(f"[build] {kname}: {line}")
+    for kname, op in (("flash_attention", "HGMMA"), ("decode_attention",
+                                                     "HMMA")):
+        counts = tensor_core_ops(built[kname][0])
+        print(f"[build] {kname} SASS tensor-core instructions: "
+              f"{counts if counts is not None else 'no cuobjdump'}")
+        if counts is not None:
+            check(counts[op] > 0, f"{kname}: no {op} in its SASS")
 
     # -- 3. kernel against its plain version ------------------------------
     grid = scenarios.default_grid()

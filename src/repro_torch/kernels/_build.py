@@ -9,6 +9,16 @@ starts one ``nvcc`` per source at once.  :func:`load` opens a library with
 ``ctypes``; the wrapper that calls it declares the ``argtypes``.  Building
 happens at first use, never at import: machines without ``nvcc`` import
 this package and run the plain PyTorch versions.
+
+Flags: ``NVCC_FLAGS`` for every kernel (``sm_90a`` so that ``wgmma`` and
+TMA are available; ``-Xptxas -v`` prints registers, shared memory and
+spills), plus ``-fmad=false`` for the kernels in ``EXACT_ROUNDING``.  No
+link flag is needed: the flash kernel's TMA maps come from
+``cuTensorMapEncodeTiled``, reached at run time through the runtime's
+``cudaGetDriverEntryPoint``, so no library links ``libcuda``.  The shared
+headers (``common.cuh``, and ``hopper.cuh`` with the PTX wrappers for
+mbarriers, TMA tile and bulk copies, ``wgmma``, ``ldmatrix`` and
+``mma.sync``) are part of every library's hash.
 """
 from __future__ import annotations
 

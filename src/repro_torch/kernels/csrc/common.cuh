@@ -1,5 +1,6 @@
 // Helpers shared by the attention and recurrence kernels: conversion between
-// the storage type (float or __nv_bfloat16) and float, and 16-byte loads.
+// the storage type (float or __nv_bfloat16) and float, 16-byte loads of
+// float, and stores of four outputs.
 //
 // Every kernel computes in float and rounds to the storage type once, on
 // the way out; __float2bfloat16_rn rounds to nearest even, as PyTorch's
@@ -36,36 +37,6 @@ struct Vec<float> {
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
   }
 };
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* out) {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
-
-// E consecutive elements of T at p, as float: 16-byte loads where E fills
-// them, element loads otherwise (p must be aligned to the loads' width).
-template <typename T, int E>
-__device__ __forceinline__ void load_f32(const T* p, float* out) {
-  constexpr int N = Vec<T>::N;
-  if constexpr (E % N == 0) {
-#pragma unroll
-    for (int i = 0; i < E; i += N) Vec<T>::load(p + i, out + i);
-  } else {
-#pragma unroll
-    for (int i = 0; i < E; ++i) out[i] = to_f32(p[i]);
-  }
-}
 
 // Four consecutive outputs, rounded to T.
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,

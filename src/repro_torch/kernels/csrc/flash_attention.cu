@@ -1,8 +1,9 @@
-// FlashAttention-2 forward for Hopper (sm_90a), on the CUDA cores.
+// FlashAttention forward for Hopper (sm_90a): bf16 on the tensor cores
+// (wgmma fed by TMA), float32 on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py
 // (flash_attention / _fa_kernel).  For q (B, Sq, H, D) and k, v
-// (B, Sk, KV, D), float32 or bfloat16, it computes
+// (B, Sk, KV, D), bfloat16 or float32, it computes
 //
 //   out[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h / G]) v[b, j, h / G]
 //
@@ -12,36 +13,60 @@
 // the output is rounded to the input type once.
 //
 // What bounds it on the card: operations.  At the serving path's prefill
-// (B = 8, S = 2048, H = 10, KV = 1, D = 256, causal) one call does 1.72e11
-// FLOP and moves 185 MB (q, k, v in, out back): 0.17 ms at the bf16 peak
-// of the tensor cores and 2.6 ms at the float32 peak of the CUDA cores.
-// This first kernel computes in float32 on the CUDA cores (tensor cores
-// through mma.sync / wgmma are later work), so the float32 peak is what it
-// can approach.
+// (B = 8, S = 2048, H = 10, KV = 1, D = 256, causal, window 2048) one call
+// does 1.72e11 FLOP (4 D per visible query-key pair) and moves 185 MB:
+// 0.174 ms at the 989 TFLOP/s bf16 peak of the tensor cores of an H100 SXM,
+// 0.055 ms at 3.35 TB/s.
 //
-// Layout: one block of 256 threads per (64-query tile, b * H + h); the
-// late (heaviest, under the causal mask) query tiles are scheduled first.
-// The block holds its query tile, one 64-key tile of K and of V, and the
-// 64 x 64 probability tile in shared memory as float (rows padded by 4
-// floats so 16-byte reads of neighbouring rows fall in different banks;
-// 212 KB at D = 256).  It streams key tiles over the range the causal and
-// window masks leave (fully masked tiles are never loaded) with a running
-// max and sum per query row (online softmax).  Thread (ty, tx) of the
-// 16 x 16 grid owns rows ty + 16 i (i < 4): for S = Q K^T it owns columns
-// tx + 16 j (j < 4) and reads Q and K as float4 along D; for O += P V it
-// owns the float4 column groups 4 tx + 64 g.  Rows of a tile are reduced
-// across the 16 lanes that share ty with warp shuffles.  Ragged edges
-// (Sq or Sk not a multiple of 64) are masked, so any length works.
+// bf16 (flash_wgmma_kernel).  One block of 160 threads per (b * H + h,
+// 64-query tile); the heaviest tiles under the causal mask are scheduled
+// first (the tile index runs on the slow grid axis, reversed).  Warps 0-3
+// are one consumer warpgroup, warp 4 the producer:
+//   - the producer's lane 0 loads the query tile once and then streams the
+//     64-key tiles of K and V that the causal and window masks leave (fully
+//     masked tiles are never loaded) into a 2-stage ring in shared memory
+//     with TMA (cp.async.bulk.tensor, 4-d maps over (D, heads, S, B), so
+//     rows past S arrive as zeros), each stage guarded by a full and an
+//     empty mbarrier;
+//   - the consumers compute S = Q K^T with wgmma m64n64k16 from shared
+//     memory (Q and K both K-major, 128-byte swizzle), mask it, run the
+//     online softmax in float on the accumulator fragment (exp2 of
+//     log2-scaled logits), and compute O += P V with wgmma m64nDk16, P from
+//     registers and V read MN-major (transposed) from shared memory; O is
+//     a float fragment of D / 2 registers a thread.
+// P goes through the tensor cores as bf16 hi + lo halves (two products):
+// rounding P once to bf16, as FA2/FA3 do, moves outputs of magnitude
+// ~2^-8 by tens of bf16 ulps (rehearsed on the CPU in
+// tests/test_torch_attention_kernels.py), while hi + lo keeps P to ~2^-17
+// and the output within an ulp of the float32 reference.  The products are
+// then 1.5x the 1.72e11 FLOP.  Shared memory: Q 32 KB + 2 x (K + V) 128 KB
+// at D = 256; one block per SM.
 //
-// Host side: flash_attention_launch picks the instance for (type, D),
-// launches on the caller's stream and returns the launch's cudaError_t.
+// float32 (flash_f32_kernel) stays on the CUDA cores in full float32: the
+// float32 contract (rtol = atol = 1e-5 against the plain version, on which
+// the decode-vs-full-forward and card-vs-CPU checks rest) would not hold
+// through TF32.  One block of 256 threads per (64-query tile, b * H + h)
+// holds its query tile, one 64-key tile of K and of V and the 64 x 64
+// probability tile in shared memory as float and streams key tiles with an
+// online softmax; thread (ty, tx) of the 16 x 16 grid owns rows ty + 16 i.
+// Ragged edges (Sq or Sk not a multiple of 64) are masked in both kernels,
+// so any Sq <= Sk works.
+//
+// Host side: flash_attention_launch picks the kernel for (type, D), builds
+// the TMA maps (cuTensorMapEncodeTiled, reached through
+// cudaGetDriverEntryPoint, so nothing links libcuda), launches on the
+// caller's stream and returns the launch's cudaError_t.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// ---- float32: the CUDA-core kernel ----------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;
@@ -56,17 +81,17 @@ constexpr int smem_bytes() {
 
 // rows [r0, r0 + rows) of a (n, row_stride) matrix into a float tile with
 // row stride D + kPad; rows past n are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long row_stride, int r0, int n,
                                           int rows) {
-  constexpr int N = kern::Vec<T>::N;
+  constexpr int N = kern::Vec<float>::N;
   constexpr int per_row = D / N;
   for (int idx = threadIdx.x; idx < rows * per_row; idx += kThreads) {
     const int r = idx / per_row, c = (idx % per_row) * N;
     float vals[N];
     if (r0 + r < n) {
-      kern::Vec<T>::load(src + (long)(r0 + r) * row_stride + c, vals);
+      kern::Vec<float>::load(src + (long)(r0 + r) * row_stride + c, vals);
     } else {
 #pragma unroll
       for (int e = 0; e < N; ++e) vals[e] = 0.f;
@@ -91,11 +116,11 @@ __device__ __forceinline__ float sum16(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-                 int H, int KV, float scale, int causal, int window) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int Sq,
+                 int Sk, int H, int KV, float scale, int causal, int window) {
   constexpr int LD = D + kPad;
   constexpr int LP = kBK + kPad;
   constexpr int RI = kBQ / 16;        // rows per thread
@@ -113,11 +138,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KV);
   const int off = Sk - Sq;
   const long q_stride = (long)H * D, kv_stride = (long)KV * D;
-  const T* qb = q + (long)b * Sq * q_stride + (long)h * D;
-  const T* kb = k + (long)b * Sk * kv_stride + (long)kvh * D;
-  const T* vb = v + (long)b * Sk * kv_stride + (long)kvh * D;
+  const float* qb = q + (long)b * Sq * q_stride + (long)h * D;
+  const float* kb = k + (long)b * Sk * kv_stride + (long)kvh * D;
+  const float* vb = v + (long)b * Sk * kv_stride + (long)kvh * D;
 
-  load_tile<T, D>(Qs, qb, q_stride, q0, Sq, kBQ);
+  load_tile<D>(Qs, qb, q_stride, q0, Sq, kBQ);
 
   // the key range some row of this tile may see
   const int q_lo = q0 + off, q_hi = min(q0 + kBQ, Sq) - 1 + off;
@@ -136,8 +161,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();                  // the previous tile's readers are done
-    load_tile<T, D>(Ks, kb, kv_stride, k0, Sk, kBK);
-    load_tile<T, D>(Vs, vb, kv_stride, k0, Sk, kBK);
+    load_tile<D>(Ks, kb, kv_stride, k0, Sk, kBK);
+    load_tile<D>(Vs, vb, kv_stride, k0, Sk, kBK);
     __syncthreads();
 
     float s[RI][CJ];
@@ -210,7 +235,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = o + (long)b * Sq * q_stride + (long)h * D;
+  float* ob = o + (long)b * Sq * q_stride + (long)h * D;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -225,11 +250,273 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int B, int Sq, int Sk, int H, int KV, float scale,
-                   int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+// ---- bf16: the tensor-core kernel ------------------------------------------
+
+constexpr int kWgBQ = 64;            // query rows: one consumer warpgroup
+constexpr int kWgBK = 64;            // keys per K/V tile
+constexpr int kStages = 2;           // K/V tiles in flight
+constexpr int kPanel = 64 * 128;     // 64 rows x 64 bf16 columns, swizzled
+constexpr int kWgThreads = 160;      // the warpgroup + the producer warp
+
+template <int D>
+struct WgLayout {
+  static constexpr int kTile = (D / 64) * kPanel;   // one 64 x D tile
+  // Q, kStages x (K, V), the barriers, and slack to align to 1024 bytes
+  static constexpr int kBytes = 1024 + kTile * (1 + 2 * kStages) +
+                                8 * (2 * kStages + 1);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
+                   int KV, float scale_log2, int causal, int window) {
+  constexpr int kTile = WgLayout<D>::kTile;
+  constexpr int NP = D / 64;           // panels of a tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* Qs = smem;
+  uint8_t* KVs = smem + kTile;         // stage s: K at 2 s kTile, V after it
+  uint64_t* full = reinterpret_cast<uint64_t*>(KVs + 2 * kStages * kTile);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int kvh = h / (H / KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgBQ;
+  const int off = Sk - Sq;
+  // the key range some row of this tile may see
+  const int q_lo = q0 + off, q_hi = min(q0 + kWgBQ, Sq) - 1 + off;
+  int k_begin = 0, k_end = Sk;
+  if (causal) k_end = min(Sk, q_hi + 1);
+  if (window > 0) k_begin = max(0, q_lo - window + 1) / kWgBK * kWgBK;
+  const int n_tiles = (k_end - k_begin + kWgBK - 1) / kWgBK;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 128);
+    }
+    hop::mbar_init(qbar, 1);
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= 128) {                    // the producer warp
+    if (tid == 128) {
+      hop::mbar_expect_tx(qbar, kTile);
+      for (int p = 0; p < NP; ++p)
+        hop::tma_load_4d(Qs + p * kPanel, &tq, qbar, 64 * p, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages, use = t / kStages;
+        if (use > 0) hop::mbar_wait(&empty[s], (use - 1) & 1);
+        hop::mbar_expect_tx(&full[s], 2 * kTile);
+        uint8_t* Kt = KVs + 2 * s * kTile;
+        const int k0 = k_begin + t * kWgBK;
+        for (int p = 0; p < NP; ++p) {
+          hop::tma_load_4d(Kt + p * kPanel, &tk, &full[s], 64 * p, kvh, k0, b);
+          hop::tma_load_4d(Kt + kTile + p * kPanel, &tv, &full[s], 64 * p,
+                           kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread (warp w, lane 4 g + c) holds rows
+  // 16 w + g and 16 w + g + 8 of every accumulator, at columns 8 j + 2 c
+  // and 8 j + 2 c + 1 (registers 4 j .. 4 j + 3)
+  const int lane = tid & 31, g = lane >> 2, c = lane & 3;
+  const int row0 = (tid >> 5) * 16 + g;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  hop::mbar_wait(qbar, 0);
+  __syncwarp();
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kStages;
+    hop::mbar_wait(&full[s], (t / kStages) & 1);
+    __syncwarp();
+    const uint8_t* Kt = KVs + 2 * s * kTile;
+    const uint8_t* Vt = Kt + kTile;
+
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hop::fence_reg(sc[i]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int at = (kk / 4) * kPanel + (kk % 4) * 32;
+      hop::wgmma_m64n64k16_ss(sc, hop::desc_sw128(Qs + at, 16, 1024),
+                              hop::desc_sw128(Kt + at, 16, 1024), 1);
+    }
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < 32; ++i) hop::fence_reg(sc[i]);
+
+    // mask, then the online softmax in the log2 domain
+    const int k0 = k_begin + t * kWgBK;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int qpos = q0 + row0 + 8 * ((i >> 1) & 1) + off;
+      const int kpos = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+      const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                      (window <= 0 || kpos > qpos - window);
+      sc[i] = ok ? sc[i] * scale_log2 : kNegInf;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      corr[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      sc[i] = sc[i] == kNegInf ? 0.f : exp2f(sc[i] - m[r]);
+      l[r] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+    // P as the A fragments of four k16 steps, in bf16 hi and lo halves:
+    // step kk takes the accumulator's column blocks 2 kk and 2 kk + 1
+    uint32_t phi[4][4], plo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int i = 8 * kk + 4 * (q >> 1) + 2 * (q & 1);
+        hop::split_bf16(sc[i], sc[i + 1], phi[kk][q], plo[kk][q]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) hop::fence_reg(acc[i]);
+    hop::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma_m64k16_rs<D>(acc, phi[kk],
+                              hop::desc_sw128(Vt + kk * 2048, kPanel, 1024));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma_m64k16_rs<D>(acc, plo[kk],
+                              hop::desc_sw128(Vt + kk * 2048, kPanel, 1024));
+    hop::wgmma_commit();
+    hop::wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) hop::fence_reg(acc[i]);
+    hop::mbar_arrive(&empty[s]);       // this stage may be refilled
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+  const long q_stride = (long)H * D;
+  __nv_bfloat16* ob = o + ((long)b * Sq + q0) * q_stride + (long)h * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (q0 + row >= Sq) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(ob + row * q_stride + 8 * j + 2 * c) =
+          hop::pack_bf16(acc[4 * j + 2 * r] / l[r],
+                         acc[4 * j + 2 * r + 1] / l[r]);
+    }
+  }
+}
+
+// ---- host side -------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// The TMA map of a (B, S, NH, D) bf16 tensor, in boxes of 64 rows of one
+// head by 64 columns, swizzled by 128 bytes.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
+                int D) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
+                                 (cuuint64_t)S * NH * D * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
+                        int B, int Sq, int Sk, int H, int KV, float scale,
+                        int causal, int window, cudaStream_t stream) {
+  auto kernel = flash_wgmma_kernel<D>;
+  constexpr int bytes = WgLayout<D>::kBytes;
+  static bool configured = false;   // once per instance, outside any capture
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, B, Sq, H, D) || !tensor_map(&tk, k, B, Sk, KV, D) ||
+      !tensor_map(&tv, v, B, Sk, KV, D))
+    return cudaErrorInvalidValue;
+  dim3 grid(B * H, (Sq + kWgBQ - 1) / kWgBQ);
+  kernel<<<grid, kWgThreads, bytes, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
+      scale * 1.4426950408889634f, causal, window);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       int B, int Sq, int Sk, int H, int KV, float scale,
+                       int causal, int window, cudaStream_t stream) {
+  auto kernel = flash_f32_kernel<D>;
   constexpr int bytes = smem_bytes<D>();
   static bool configured = false;   // once per instance, outside any capture
   if (!configured) {
@@ -240,30 +527,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   }
   dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, scale,
-      causal, window);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
+      scale, causal, window);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* o, int B, int Sq, int Sk, int H, int KV,
-                     float scale, int causal, int window,
-                     cudaStream_t stream) {
-  switch (D) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                           window, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                            window, stream);
-    case 256:
-      return launch<T, 256>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                            window, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
+                   void* o, int B, int Sq, int Sk, int H, int KV, float scale,
+                   int causal, int window, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
+                         stream);
+  if (dtype == 1)
+    return launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                          window, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -280,11 +560,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int window, void* stream) {
   if (Sq == 0 || B * H == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(D, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                           window, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(D, q, k, v, o, B, Sq, Sk, H, KV, scale,
-                                   causal, window, s);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 64:
+      return launch<64>(dtype, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                        window, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                         window, s);
+    case 256:
+      return launch<256>(dtype, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+                         window, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

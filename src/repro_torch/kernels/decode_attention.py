@@ -7,17 +7,24 @@ version.
 is laid out are written at the top of that file).  A CPU tensor goes to
 :func:`decode_attention_plain`; a CUDA tensor goes to the kernel, which is
 built at first use, or the call raises.  ``decode_attention.launches``
-counts the calls that launched it (one call is a split pass over the
-cache and a combine pass).
+counts the kernel launches made (one a call: the split over the cache and
+the combine run in the same launch).  The wrapper allocates the kernel's
+scratch: the chunks' partial sums (``torch.empty``, per call) and one
+int32 counter per (b, kv head), zeroed once per device and left zero by
+every launch (the last block of each group resets its counter), so a
+captured CUDA graph replays on clean counters.
 
 :func:`decode_attention_plain` is the counterpart of
 ``repro.kernels.ref.decode_attention``: float32 throughout, invalid cache
 slots masked with -1e30, the output rounded to the input type.  That is
-also what the Pallas kernel computes, and so the kernel; the JAX model's
-own decode route (``ops._decode_xla``) instead rounds ``q * scale`` and the
-probabilities to the cache's type before the two products.  The kernel
-sums in another order than the plain version: they agree to about 1e-5 in
-float32 and within a bf16 ulp or two of the output in bfloat16.
+also what the Pallas kernel computes; the JAX model's own decode route
+(``ops._decode_xla``) instead rounds ``q * scale`` and the probabilities to
+the cache's type before the two products.  The kernel sums in another
+order, and in bfloat16 runs both products on the tensor cores (bf16
+operands, float sums, the probabilities split into bf16 hi + lo halves):
+it agrees with the plain version to about 1e-5 in float32 and within a
+bf16 ulp or two of the output in bfloat16.  It takes at most
+``MAX_GROUP`` query heads per kv head.
 """
 from __future__ import annotations
 
@@ -29,7 +36,9 @@ import torch
 from . import _build
 from .flash_attention import DTYPES, HEAD_DIMS, NEG_INF
 
-MAX_GROUP = 32                      # query heads per kv head: one warp each
+MAX_GROUP = 16                      # query heads per kv head: the 16 rows
+                                    # of the kernel's mma tile
+_COUNTERS: dict = {}                # device -> zeroed int32 counters
 
 
 def _check(q, k_cache, v_cache, lengths):
@@ -77,13 +86,22 @@ def decode_attention_plain(q, k_cache, v_cache, lengths, *,
 def _library():
     lib = _build.load("decode_attention")
     fn = lib.decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.decode_attention_chunk.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _counters(dev, n: int):
+    """``n`` zeroed int32 counters on ``dev``, kept across calls: the
+    kernel leaves them zero."""
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[dev] = torch.zeros(n, dtype=torch.int32, device=dev)
+    return buf
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *,
@@ -116,12 +134,14 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
     pm = torch.empty((n_split, B, H), dtype=torch.float32, device=dev)
     pl = torch.empty_like(pm)
     pacc = torch.empty((n_split, B, H, D), dtype=torch.float32, device=dev)
+    counters = _counters(dev, B * KV)
     out = torch.empty_like(q)
     with torch.cuda.device(dev):
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), pm.data_ptr(), pl.data_ptr(),
-            pacc.data_ptr(), out.data_ptr(), DTYPES[q.dtype], B, S, H, KV, D,
+            pacc.data_ptr(), counters.data_ptr(), out.data_ptr(),
+            DTYPES[q.dtype], B, S, H, KV, D,
             float(scale), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(

@@ -13,7 +13,10 @@ counts the kernel launches made.
 with -1e30, a softmax, and the output rounded to the input type.  The
 kernel's online softmax sums in another order, so the two agree to
 rounding: about 1e-5 in float32, and within a bf16 ulp or two of the
-output in bfloat16.
+output in bfloat16, where the kernel runs both products on the tensor
+cores with bf16 operands and float sums, P split into bf16 hi + lo halves
+(the rounding is rehearsed on the CPU in
+``tests/test_torch_attention_kernels.py``).
 """
 from __future__ import annotations
 

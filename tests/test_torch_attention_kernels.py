@@ -183,3 +183,163 @@ def test_wrappers_check_their_inputs():
         ops.decode_attention(x[:, 0], x, x, torch.zeros(1, dtype=torch.int64))
     with pytest.raises(ValueError, match="h0"):
         ops.linear_recurrence(x[0], x[0], torch.zeros((3, 2)))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels' bf16 arithmetic, rehearsed on the CPU.  The two attention
+# kernels run their products on the tensor cores: bf16 operands, float
+# accumulation, the online softmax in float in the log2 domain, and P split
+# into bf16 hi + lo halves before O += P V (rounding P once to bf16, as
+# FA2/FA3 do, moves outputs of magnitude ~2^-8 by tens of ulps).  The
+# emulations below repeat that arithmetic with the kernels' tile sizes and
+# are held to the plain versions with the criterion chip_smoke.py holds the
+# kernels to on the card: at most 2 bf16 ulps.
+
+LOG2E = 1.4426950408889634
+
+
+def _bf16_ulps(got, want):
+    """chip_smoke.py::bf16_ulps: the largest |got - want| in bf16 ulps of
+    want's magnitude, the ulp taken at no less than 2^-8's."""
+    mag = want.float().abs().clamp_min(2.0 ** -8)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def _pv(p, v, split):
+    """P V as the kernels compute it: P rounded to bf16 hi (+ lo)."""
+    hi = p.bfloat16().float()
+    out = hi @ v
+    if split:
+        out = out + (p - hi).bfloat16().float() @ v
+    return out
+
+
+def _flash_emulated(q, k, v, *, window, split=True, bq=64, bk=64):
+    """flash_wgmma_kernel's arithmetic: 64-query tiles against the 64-key
+    tiles the causal and window masks leave, online softmax."""
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], H // k.shape[2]
+    off, c = Sk - Sq, D ** -0.5 * LOG2E
+    qf = q.float().permute(0, 2, 1, 3)                      # (B, H, Sq, D)
+    kf = k.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    vf = v.float().repeat_interleave(G, 2).permute(0, 2, 1, 3)
+    out = torch.empty(B, H, Sq, D)
+    for q0 in range(0, Sq, bq):
+        Q = qf[:, :, q0:q0 + bq]
+        qpos = torch.arange(q0, q0 + Q.shape[2])[:, None] + off
+        q_lo, q_hi = q0 + off, q0 + Q.shape[2] - 1 + off
+        k_begin = max(0, q_lo - window + 1) // bk * bk if window > 0 else 0
+        m = torch.full(Q.shape[:3], -1e30)
+        l = torch.zeros(Q.shape[:3])
+        acc = torch.zeros(Q.shape)
+        for k0 in range(k_begin, min(Sk, q_hi + 1), bk):
+            kpos = torch.arange(k0, min(k0 + bk, Sk))[None, :]
+            ok = (kpos <= qpos) & ((kpos > qpos - window) if window > 0
+                                   else True)
+            s = torch.where(ok, (Q @ kf[:, :, k0:k0 + bk].transpose(-1, -2))
+                            * c, -1e30)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp2(m - m_new)
+            p = torch.where(ok, torch.exp2(s - m_new[..., None]), 0.0)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + _pv(p, vf[:, :, k0:k0 + bk], split)
+            m = m_new
+        out[:, :, q0:q0 + bq] = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def _decode_emulated(q, k_cache, v_cache, lengths, chunk=128, tile=64,
+                     warps=4):
+    """decode_kernel's arithmetic: 128-key chunks, each a ring of 64-key
+    tiles of which warp w scores keys 16 w .. 16 w + 15 with its own
+    online softmax; the warps merge, then the chunks."""
+    B, H, D = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G, c = H // KV, D ** -0.5 * LOG2E
+    out = torch.empty(B, H, D)
+    for b in range(B):
+        n_len = int(lengths[b])
+        for kvh in range(KV):
+            Q = q[b, kvh * G:(kvh + 1) * G].float()
+            K = k_cache[b, :, kvh].float()
+            V = v_cache[b, :, kvh].float()
+            parts = []
+            for s0 in range(0, max(n_len, 1), chunk):
+                ws = []
+                for w in range(warps):
+                    m = torch.full((G,), -1e30)
+                    l = torch.zeros(G)
+                    acc = torch.zeros(G, D)
+                    for t in range(0, chunk, tile):
+                        j0 = s0 + t + 16 * w
+                        ok = (torch.arange(j0, j0 + 16) < n_len)[None, :]
+                        if j0 >= S:
+                            continue
+                        s = torch.where(ok, (Q @ K[j0:j0 + 16].T) * c, -1e30)
+                        m_new = torch.maximum(m, s.amax(-1))
+                        corr = torch.exp2(m - m_new)
+                        p = torch.where(ok, torch.exp2(s - m_new[:, None]),
+                                        0.0)
+                        l = l * corr + p.sum(-1)
+                        acc = acc * corr[:, None] + _pv(p, V[j0:j0 + 16],
+                                                        True)
+                        m = m_new
+                    ws.append((m, l, acc))
+                M = torch.stack([x[0] for x in ws]).amax(0)
+                wt = [torch.exp2(x[0] - M) for x in ws]
+                parts.append((M, sum(x[1] * f for x, f in zip(ws, wt)),
+                              sum(x[2] * f[:, None] for x, f in zip(ws, wt))))
+            M = torch.stack([x[0] for x in parts]).amax(0)
+            wt = [torch.exp2(x[0] - M) for x in parts]
+            L = sum(x[1] * f for x, f in zip(parts, wt)).clamp_min(1e-30)
+            A = sum(x[2] * f[:, None] for x, f in zip(parts, wt))
+            out[b, kvh * G:(kvh + 1) * G] = A / L[:, None]
+    return out.to(q.dtype)
+
+
+def _bf16_normal(rng, shape):
+    return torch.as_tensor(_normal(rng, shape)).bfloat16()
+
+
+TENSOR_CORE_FLASH_CASES = [
+    # B, S, H, KV, D, window
+    (1, 1024, 2, 1, 256, 1024),           # the serving shape, cut down
+    (1, 1025, 2, 1, 256, 1025),           # ragged: a 1-row query tile
+    (1, 512, 4, 2, 64, 0),                # llama3.2-1b's D, GQA, causal
+]
+
+
+@pytest.mark.parametrize("case", TENSOR_CORE_FLASH_CASES)
+def test_flash_tensor_core_rounding_within_2_ulps(case):
+    B, S, H, KV, D, window = case
+    rng = np.random.default_rng(5)
+    q = _bf16_normal(rng, (B, S, H, D))
+    k, v = (_bf16_normal(rng, (B, S, KV, D)) for _ in range(2))
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    got = _flash_emulated(q, k, v, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_ulps(got, want) <= 2.0
+
+
+def test_rounding_p_once_to_bf16_breaks_the_2_ulp_bound():
+    """Why the kernels split P: one bf16 rounding of P misses the bound."""
+    B, S, H, KV, D, window = TENSOR_CORE_FLASH_CASES[0]
+    rng = np.random.default_rng(5)
+    q = _bf16_normal(rng, (B, S, H, D))
+    k, v = (_bf16_normal(rng, (B, S, KV, D)) for _ in range(2))
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    assert _bf16_ulps(_flash_emulated(q, k, v, window=window, split=False),
+                      want) > 2.0
+
+
+def test_decode_tensor_core_rounding_within_2_ulps():
+    rng = np.random.default_rng(6)
+    B, S, H, KV, D = 4, 1024, 10, 1, 256
+    q = _bf16_normal(rng, (B, H, D))
+    kc, vc = (_bf16_normal(rng, (B, S, KV, D)) for _ in range(2))
+    lengths = torch.tensor([1024, 1, 300, 777], dtype=torch.int32)
+    want = decode_attention_plain(q, kc, vc, lengths)
+    got = _decode_emulated(q, kc, vc, lengths)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert _bf16_ulps(got, want) <= 2.0
