@@ -14,9 +14,17 @@ Phases, each of which exits nonzero on failure:
    flash_attention must hold HGMMA and decode_attention HMMA.
 3. Kernel vs plain: ``dp_recurrence`` against ``dp_recurrence_plain`` on the
    same CUDA inputs - 8 default-grid scenarios at J = 60, dt = 1/12 (both
-   objectives) and at the main-path size J = 300, dt = 1/60 (makespan).
+   objectives) and at the main-path size J = 300, dt = 1/60 (both
+   objectives; the makespan case solved 16 times and the dollar case 4
+   times, each solve held to the plain tables on its own, since a race in
+   the kernel's wavefront would show in some runs and not in others).
    Tolerance: V within rtol = atol = 1e-5; K agreement >= 0.999 (makespan)
-   or >= 0.995 (dollars), the contract the Pallas kernel is held to.
+   or >= 0.995 (dollars), the contract the Pallas kernel is held to; each
+   case also prints in how many runs V and K are bit-identical.  Exact
+   ties: with F = H = 0 at dt = 0.25 and no checkpoint delay every
+   candidate of row j costs j * 0.25, so V and K must equal the plain
+   version's exactly, with K == 1 on every row j >= 1 (the first-match
+   argmin).
 4. Main path: ``scenarios.sweep_checkpointing`` over the 8-scenario default
    grid x 3 policies x seeds (0, 1), J = 300 at dt = 1/60 (T = 1441 ages),
    4000 trials, max_restarts 64, with the kernel launch counter reset just
@@ -26,12 +34,20 @@ Phases, each of which exits nonzero on failure:
    executor's float64 makespans bit-identical between the card and the CPU
    on one shared pool.
 5. Timing: medians of 5 runs after a warm-up (CUDA events for the DP solves,
-   host clock plus synchronize for the rest).
+   host clock plus synchronize for the rest), the kernel launches a solve
+   makes, and one sweep under torch.profiler for its wall time, the
+   device's busy share and the device events that take the time.
 6. Serving kernels vs plain: flash_attention, decode_attention and
    linear_recurrence against their plain versions on the same CUDA inputs,
    at the serving path's shapes in bf16 and at further cases (float32, a
    ragged length, llama3.2-1b's full-causal GQA shape, Sq < Sk, mixed
-   decode lengths, the recurrence with and without h0 and at S = 1).
+   decode lengths, the recurrence with and without h0, at S = 1, at S not a
+   multiple of its time chunk (2047, 37), at B = 1, at W not a multiple of
+   its channel slice (1000), and at a W whose rows TMA cannot address
+   (1001)); each recurrence case checks which kernel its launch chose (the
+   chunked one for S >= 16 with rows of a multiple of 16 bytes, the loop
+   kernel at S = 1 and W = 1001) and prints whether h and h_last are
+   bit-identical to the plain version's.
    Tolerances: float32 within rtol = atol = 1e-5 (summation order only);
    bf16 within 2 bf16 ulps of the plain result (the plain versions compute
    in float32 and round once; the attention kernels sum bf16 products in
@@ -44,7 +60,9 @@ Phases, each of which exits nonzero on failure:
    batches, each admitted by ``PreemptionSource.reuse_decision``, of 8
    prompts x 2048 tokens, 32 greedy tokens each, with the three kernels'
    launch counters reset just before and read just after (8, 248 and 576
-   a batch).  Checks: every logit of a prefill and its 31 decode steps is
+   a batch; of the recurrence's, the 18 prefill launches a batch must take
+   the chunked kernel and the 558 decode launches the loop kernel).
+   Checks: every logit of a prefill and its 31 decode steps is
    finite; decode step 1's logits match a full forward over prompt + 1
    tokens (S = 2049) within LOGIT_TOL_BF16 in bf16, and within
    LOGIT_TOL_F32 with the same weights in float32 (B = 2), the greedy
@@ -76,6 +94,7 @@ import numpy as np
 
 J_SMALL, DT_SMALL = 60, 1.0 / 12.0
 J_MAIN, DT_MAIN = 300, 1.0 / 60.0
+MAIN_REPEATS = 16              # kernel solves held to the plain J_MAIN one
 N_TRIALS, SEEDS, MAX_RESTARTS, DELTA, N_SWEEPS = 4000, (0, 1), 64, 1, 3
 RO_HOURS = 0.3                 # restart overhead for the dollar check
 OPS_PER_CANDIDATE = 20         # f32 operations per (candidate, lane), a
@@ -249,18 +268,49 @@ def dp_inputs(torch, grids, dists, job_steps, grid_dt, price=None):
     return kw
 
 
-def compare(torch, dp_recurrence, dp_recurrence_plain, kw, k_min, label):
+def compare(torch, dp_recurrence, dp_recurrence_plain, kw, k_min, label,
+            repeats=1):
+    """Holds ``repeats`` kernel solves on ``kw`` to one plain solve, each
+    run on its own: a missing wait in the wavefront would show in some
+    runs, by their timing, and not in others.  Returns the worst run's
+    max|dV| and K agreement."""
+    Vp, Kp = dp_recurrence_plain(**kw)
+    worst_dv, worst_k, n_same = 0.0, 1.0, 0
+    for _ in range(repeats):
+        Vk, Kk = dp_recurrence(**kw)
+        torch.cuda.synchronize()
+        max_dv = float((Vk - Vp).abs().max())
+        k_agree = float((Kk == Kp).double().mean())
+        close = bool(torch.allclose(Vk, Vp, rtol=1e-5, atol=1e-5))
+        check(close, f"{label}: V differs beyond rtol = atol = 1e-5")
+        check(k_agree >= k_min, f"{label}: K agreement {k_agree} < {k_min}")
+        worst_dv, worst_k = max(worst_dv, max_dv), min(worst_k, k_agree)
+        n_same += bool(torch.equal(Vk, Vp)) and bool(torch.equal(Kk, Kp))
+    print(f"[kernel] {label}: {repeats} run(s), worst max|dV| = "
+          f"{worst_dv:.3e}, worst K agreement = {worst_k:.6f} (need V "
+          f"allclose 1e-5 and K >= {k_min}); V and K bit-identical in "
+          f"{n_same} of {repeats}")
+    return worst_dv, worst_k
+
+
+def exact_ties(torch, grids, dp_recurrence, dp_recurrence_plain):
+    """Phase 3's tie case: F = H = 0, dt = 0.25, no checkpoint delay."""
+    S, j_max, t_max, dt = 3, 60, 199, 0.25
+    Fc = torch.zeros((S, t_max + 1), dtype=torch.float32, device="cuda")
+    kw = dict(Fc=Fc, Hc=torch.zeros_like(Fc),
+              col0=grids.seed_column(Fc, j_max, dt), grid_dt=dt,
+              restart_overhead=RO_HOURS, j_max=j_max, t_max=t_max,
+              delta_steps=0, n_sweeps=2)
     Vk, Kk = dp_recurrence(**kw)
     Vp, Kp = dp_recurrence_plain(**kw)
     torch.cuda.synchronize()
-    max_dv = float((Vk - Vp).abs().max())
-    k_agree = float((Kk == Kp).double().mean())
-    close = bool(torch.allclose(Vk, Vp, rtol=1e-5, atol=1e-5))
-    print(f"[kernel] {label}: max|dV| = {max_dv:.3e}, K agreement = "
-          f"{k_agree:.6f} (need V allclose 1e-5 and K >= {k_min})")
-    check(close, f"{label}: V differs beyond rtol = atol = 1e-5")
-    check(k_agree >= k_min, f"{label}: K agreement {k_agree} < {k_min}")
-    return max_dv, k_agree
+    same = bool(torch.equal(Vk, Vp)) and bool(torch.equal(Kk, Kp))
+    first = bool((Kk[:, 1:] == 1).all())
+    print(f"[kernel] exact ties ({S} scenarios, J = {j_max}, T = {t_max + 1}"
+          f"): V, K equal to the plain version's {same}; K == 1 on rows "
+          f"j >= 1 {first}")
+    check(same, "exact ties: the kernel's tables differ from the plain ones")
+    check(first, "exact ties: the argmin is not the first candidate")
 
 
 def fp32_peak_ops(torch):
@@ -360,17 +410,28 @@ def serving_kernels_vs_plain(torch):
             main["decode_attention"] = (q, kc, vc, lengths)
     W = 2560
     rec_cases = [
-        ("serving prefill", BATCH, S, W, True, bf16),
-        ("no h0", BATCH, S, W, False, bf16),
-        ("serving decode S=1", BATCH, 1, W, True, bf16),
-        ("float32", 2, 300, 1000, False, f32),
+        # label, B, S, W, with h0, dtype, the kernel the launch must choose
+        ("serving prefill", BATCH, S, W, True, bf16, "chunked"),
+        ("no h0", BATCH, S, W, False, bf16, "chunked"),
+        ("serving decode S=1", BATCH, 1, W, True, bf16, "loop"),
+        ("float32", 2, 300, 1000, False, f32, "chunked"),
+        ("S=2047", BATCH, S - 1, W, True, bf16, "chunked"),
+        ("S=37", 2, 37, W, True, bf16, "chunked"),
+        ("B=1", 1, S, W, True, bf16, "chunked"),
+        ("W=1000", 2, 300, 1000, True, bf16, "chunked"),
+        ("W=1001", 2, 100, 1001, True, bf16, "loop"),
     ]
-    for label, B, S_, W_, with_h0, dt in rec_cases:
+    for label, B, S_, W_, with_h0, dt, route in rec_cases:
         a = (0.5 + 0.5 * torch.rand((B, S_, W_), generator=gen,
                                     device="cuda")).to(dt)
         b = normal(B, S_, W_, dtype=dt)
         h0 = normal(B, W_, dtype=dt) if with_h0 else None
+        before = dict(linear_recurrence.launches_by_kernel)
         h, h_last = linear_recurrence(a, b, h0)
+        ran = [k for k, n in linear_recurrence.launches_by_kernel.items()
+               if n != before[k]]
+        check(ran == [route], f"recurrence {label}: launched {ran}, "
+              f"expected the {route} kernel")
         want_h, want_last = linear_recurrence_plain(a, b, h0)
         check(bool(torch.equal(h_last, h[:, -1])),
               f"recurrence {label}: h_last != h[:, -1]")
@@ -378,6 +439,9 @@ def serving_kernels_vs_plain(torch):
                         h, want_h),
                   agree(torch, f"recurrence {label} h_last", h_last,
                         want_last))
+        print(f"[serve-kernels] recurrence {label}: {route} kernel; "
+              f"bit-identical h {bool(torch.equal(h, want_h))}, h_last "
+              f"{bool(torch.equal(h_last, want_last))}")
         errs["linear_recurrence"] = max(errs["linear_recurrence"], err)
         if label == "serving prefill":
             main["linear_recurrence"] = (a, b, h0)
@@ -460,6 +524,8 @@ def serving_path(torch):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
         fn.launches = 0
+    linear_recurrence.launches_by_kernel = dict.fromkeys(
+        linear_recurrence.launches_by_kernel, 0)
     t0 = time.perf_counter()
     records = serve.serve(cfg, model, batches=BATCHES, batch_size=BATCH,
                           prompt_len=PROMPT, n_decode=N_DECODE,
@@ -467,6 +533,7 @@ def serving_path(torch):
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in counters}
+    rec_kernels = dict(linear_recurrence.launches_by_kernel)
     peak_bytes = torch.cuda.max_memory_allocated()
     n_attn = model.kinds.count("local_attn")
     n_rec = model.kinds.count("rglru")
@@ -479,6 +546,13 @@ def serving_path(torch):
           f"{[r['rotated'] for r in records]}); launches {launches}, "
           f"expected {want}; peak {peak_bytes / 1e9:.2f} GB")
     check(launches == want, f"launch counts {launches} != {want}")
+    # prefill (S = 2048) takes the chunked recurrence, decode (S = 1) the loop
+    want_rec = {"loop": BATCHES * n_rec * (N_DECODE - 1),
+                "chunked": BATCHES * n_rec}
+    print(f"[serve] linear_recurrence launches by kernel {rec_kernels}, "
+          f"expected {want_rec}")
+    check(rec_kernels == want_rec,
+          f"recurrence kernels {rec_kernels} != {want_rec}")
     for r in records:
         toks = r["tokens"]
         check(tuple(toks.shape) == (BATCH, N_DECODE), "token shape")
@@ -740,7 +814,12 @@ def main() -> int:
             f"dollars J={J_SMALL}")
     main_kw = dp_inputs(torch, grids, dists, J_MAIN, DT_MAIN)
     max_dv, k_agree = compare(torch, dp_recurrence, dp_recurrence_plain,
-                              main_kw, 0.999, f"makespan J={J_MAIN}")
+                              main_kw, 0.999, f"makespan J={J_MAIN}",
+                              repeats=MAIN_REPEATS)
+    compare(torch, dp_recurrence, dp_recurrence_plain,
+            dp_inputs(torch, grids, dists, J_MAIN, DT_MAIN, price), 0.995,
+            f"dollars J={J_MAIN}", repeats=4)
+    exact_ties(torch, grids, dp_recurrence, dp_recurrence_plain)
 
     # -- 4. the main path ---------------------------------------------------
     sweep_kw = dict(seeds=SEEDS, job_steps=J_MAIN, n_trials=N_TRIALS,
@@ -795,6 +874,9 @@ def main() -> int:
           f"({mk_gpu.size} trials)")
 
     # -- 5. timing ----------------------------------------------------------
+    before = dp_recurrence.launches
+    dp_recurrence(**main_kw)
+    per_solve = dp_recurrence.launches - before
     ms_kernel = cuda_ms(torch, lambda: dp_recurrence(**main_kw))
     ms_plain = cuda_ms(torch, lambda: dp_recurrence_plain(**main_kw))
     cells = [d for d in dists for _ in SEEDS]
@@ -815,6 +897,14 @@ def main() -> int:
         table_index=table_ix, pool_index=pool_ix, device="cuda"))
     ms_sweep = host_ms(torch, lambda: scenarios.sweep_checkpointing(
         grid, **sweep_kw))
+    wall, dev_ms, prof_rows = profile_window(
+        torch, lambda: scenarios.sweep_checkpointing(grid, **sweep_kw))
+    busy = None if dev_ms is None else dev_ms / wall
+    print(f"[profile] sweep: wall {wall:.2f} ms, device busy "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms (share "
+          f"{busy if busy is None else round(busy, 4)}); device events:")
+    for name, ms, calls in prof_rows:
+        print(f"[profile] sweep   {ms:9.3f} ms  {calls:5d} x  {name}")
 
     # bound: live lanes only (dead lanes skip the candidate loop)
     S, T = main_kw["Fc"].shape
@@ -829,10 +919,13 @@ def main() -> int:
           f" at {clock_hz / 1e9:.3f} GHz)")
     print(f"[timing] candidate-lane evaluations per solve: {cand_lanes}; "
           f"f32 ops {ops:.4g}; table bytes {nbytes}")
-    timings = {"dp_solve_kernel_ms": ms_kernel, "dp_solve_plain_ms": ms_plain,
+    timings = {"dp_solve_kernel_ms": ms_kernel,
+               "dp_solve_plain_ms": ms_plain,
                "pool_draw_ms": ms_pool, "executor_ms": ms_exec,
                "sweep_ms": ms_sweep, "first_sweep_s": first_sweep_s,
-               "launches_per_solve": N_SWEEPS * J_MAIN, "card": smi}
+               "sweep_profiled_wall_ms": wall, "sweep_device_ms": dev_ms,
+               "sweep_device_busy_share": busy,
+               "launches_per_solve": per_solve, "card": smi}
     print("[timing] " + json.dumps(timings))
     kernel = {
         "name": "dp_recurrence", "route": "cuda",

@@ -5,7 +5,9 @@
 The kernel carries the restart-cost fixed point through its column-0
 snapshot, so a warm start enters as the seed column ``v_init[:, :, 0]``
 and a cold one as ``j*dt`` (makespan) or ``Pc[:, :j_max+1]`` (dollars).
-Tolerance-tested against the ``reference`` backend.
+A solve is one persistent kernel launch, all sweeps included, so
+``dp_recurrence.launches`` grows by 1 per call.  Tolerance-tested against
+the ``reference`` backend.
 """
 from __future__ import annotations
 

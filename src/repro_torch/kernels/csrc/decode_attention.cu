@@ -493,13 +493,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float scale, cudaStream_t stream) {
   auto kernel = decode_kernel<T, D>;
   constexpr int bytes = DecLayout<T, D>::kBytes;
-  static bool configured = false;   // once per instance, outside any capture
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // Set on every launch: the opt-in is per device, and the call is cheap
+  // and allowed while a stream is captured.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
   dim3 grid((S + kChunk - 1) / kChunk, B * KV);
   kernel<<<grid, kWarps * 32, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

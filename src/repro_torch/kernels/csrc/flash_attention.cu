@@ -444,36 +444,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---- host side -------------------------------------------------------------
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // The TMA map of a (B, S, NH, D) bf16 tensor, in boxes of 64 rows of one
 // head by 64 columns, swizzled by 128 bytes.
 bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
                 int D) {
-  EncodeTiledFn encode = encode_tiled();
+  hop::EncodeTiledFn encode = hop::encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH, (cuuint64_t)S,
                               (cuuint64_t)B};
@@ -494,13 +469,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         int causal, int window, cudaStream_t stream) {
   auto kernel = flash_wgmma_kernel<D>;
   constexpr int bytes = WgLayout<D>::kBytes;
-  static bool configured = false;   // once per instance, outside any capture
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // Set on every launch: the opt-in is per device, and the call is cheap
+  // and allowed while a stream is captured.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, Sq, H, D) || !tensor_map(&tk, k, B, Sk, KV, D) ||
       !tensor_map(&tv, v, B, Sk, KV, D))
@@ -518,13 +491,11 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        int causal, int window, cudaStream_t stream) {
   auto kernel = flash_f32_kernel<D>;
   constexpr int bytes = smem_bytes<D>();
-  static bool configured = false;   // once per instance, outside any capture
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
+  // Set on every launch: the opt-in is per device, and the call is cheap
+  // and allowed while a stream is captured.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
   dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks for the attention kernels, as inline
-// PTX: mbarriers, TMA tile and bulk loads, wgmma and its shared-memory
-// descriptors, ldmatrix and mma.sync.
+// Hopper (sm_90a) building blocks for the attention and recurrence
+// kernels, as inline PTX: mbarriers, TMA tile loads and stores and bulk
+// loads, wgmma and its shared-memory descriptors, ldmatrix and mma.sync;
+// and, on the host, cuTensorMapEncodeTiled reached through the runtime.
 //
 // Shared-memory tiles for wgmma are kept as TMA writes them with
 // CU_TENSOR_MAP_SWIZZLE_128B: a tile of R rows and C bf16 columns is C / 64
@@ -16,6 +17,7 @@
 //     next 64 columns of N one panel on (LBO = R * 128 bytes); a 16-row
 //     k-step moves the start 2048 bytes.
 #pragma once
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +83,48 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The box at coordinates (c0, c1, c2), innermost first, as tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box at (c0, c1, c2) of the tensor ``map`` describes, written from
+// shared memory at ``src`` by the TMA unit; the part of the box outside the
+// tensor is not written.  Joins the thread's current bulk group.
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Closes the thread's current bulk group (of TMA stores).
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the thread's bulk groups have not yet finished
+// reading their shared-memory sources.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until all of the thread's bulk groups are complete (their writes
+// done).
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ``bytes`` (a multiple of 16) from global memory to shared memory at
@@ -297,6 +341,35 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(x - hf.x, y - hf.y);
+}
+
+// ---- host: TMA maps -------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime's entry-point query
+// so that no library links libcuda; null where it is missing.
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
 }
 
 }  // namespace hop

@@ -14,35 +14,62 @@
 // W = 2560) a, b in and h out are 252 MB, 75 us at 3.35 TB/s; a decode
 // step (S = 1) moves 123 KB and is bound by the launch itself.
 //
-// Layout: one thread per (b, w) channel, 64 threads a block (B * W =
-// 20,480 threads in 320 blocks at the serving shape), looping over S.
-// Neighbouring threads take neighbouring w, so every load and store of a
-// time step is coalesced along W.  The loop is unrolled by 16 with the 32
-// loads of a step group issued before the dependent chain, so that each
-// thread keeps loads in flight; the sequence is not split across threads
-// (a chunked two-pass scan is later work).
+// Reaching the byte rate takes ~25 KB in flight per SM (3.35 TB/s at ~1 us
+// of latency).  A thread per channel that loads its own steps keeps only
+// ~10 KB in flight per SM (2-byte loads, 64 bytes a warp), ~43 % of the
+// rate.  So each channel's chain stays sequential in one thread (the
+// result is bit-identical to linear_recurrence_plain), and the loads move
+// to the TMA unit:
+//   - A block owns 128 channels of one batch row (B * W / 128 = 160
+//     blocks at the serving shape, all resident) and walks S in chunks of
+//     32 steps (bf16; 16 in float32), so a chunk of a or b is one 8 KB box
+//     of a 3-d tensor map over (W, S, B) whose rows are 256 contiguous
+//     bytes (64-channel slices of 128 bytes measured 20 % slower).
+//   - Thread 0 keeps a 3-stage ring of (a, b) chunks in flight, 48 KB per
+//     block, each stage completing on its mbarrier.
+//   - The 128 threads (one per channel) run the chain from shared memory
+//     and write h into one of two output tiles; after a barrier thread 0
+//     stores the tile with one TMA store and refills the stage just read.
+//     Before that barrier it waits until the previous store has read its
+//     tile, the one the next chunk writes.
+//   - Ragged edges need no masks in the loop: TMA reads zeros past S and W
+//     and stores nothing there; the chain stops at S for h_last, and only
+//     channels < W read h0 or write h_last.
+// The tensor maps need rows of a multiple of 16 bytes and 16-byte aligned
+// tensors.  Where those fail, and for S < kMinChunkedSteps (a decode step,
+// where the launch is all the cost), the loop kernel below runs instead:
+// one thread per channel, 16 steps of loads issued before their chain.
+// The choice depends on the shape and alignment alone; a call that the
+// chunked kernel should take but whose maps cannot be made fails.
 //
 // Rounding: built with -fmad=false (kernels/_build.py), so a * h + b
 // rounds twice, as linear_recurrence_plain's separate multiply and add do.
 //
-// Host side: linear_recurrence_launch launches on the caller's stream and
-// returns the launch's cudaError_t.
+// Host side: linear_recurrence_launch picks the kernel, builds the three
+// TMA maps (cuTensorMapEncodeTiled through hop::encode_tiled), launches on
+// the caller's stream, says which kernel it launched, and returns the
+// launch's cudaError_t.  One launch a call either way.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
+// ---- the loop kernel: S < kMinChunkedSteps, or rows TMA cannot address ----
+
+constexpr int kLoopThreads = 64;
 constexpr int kUnroll = 16;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-linrec_kernel(const T* __restrict__ a, const T* __restrict__ bv,
-              const T* __restrict__ h0, T* __restrict__ out,
-              T* __restrict__ h_last, int B, int S, int W) {
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
+__global__ void __launch_bounds__(kLoopThreads)
+linrec_loop_kernel(const T* __restrict__ a, const T* __restrict__ bv,
+                   const T* __restrict__ h0, T* __restrict__ out,
+                   T* __restrict__ h_last, int B, int S, int W) {
+  const int idx = blockIdx.x * kLoopThreads + threadIdx.x;
   if (idx >= B * W) return;
   const long base = (long)(idx / W) * S * W + idx % W;
   const T* pa = a + base;
@@ -73,14 +100,169 @@ linrec_kernel(const T* __restrict__ a, const T* __restrict__ bv,
   h_last[idx] = kern::from_f32<T>(h);
 }
 
+// ---- the chunked kernel: TMA ring in, TMA stores out ------------------------
+
+constexpr int kChannels = 128;         // channels a block, one thread each
+constexpr int kStages = 3;             // (a, b) chunks in flight
+constexpr int kMinChunkedSteps = 16;
+
+template <typename T>
+struct Chunk {
+  static constexpr int kTileBytes = 8192;            // one (steps x slice) box
+  static constexpr int kSteps = kTileBytes / (kChannels * sizeof(T));
+  // a ring of kStages (a, b) tile pairs, two output tiles, the mbarriers
+  static constexpr int kSmemBytes =
+      (2 * kStages + 2) * kTileBytes + kStages * 8;
+};
+
+// Thread 0: chunk n of a and b (steps n * kSteps ..) into stage n % kStages,
+// completing on that stage's mbarrier.
+template <typename T>
+__device__ __forceinline__ void load_chunk(unsigned char* ring,
+                                           uint64_t* full,
+                                           const CUtensorMap* map_a,
+                                           const CUtensorMap* map_b, int n,
+                                           int c0, int bi) {
+  using C = Chunk<T>;
+  const int st = n % kStages;
+  unsigned char* dst = ring + 2 * st * C::kTileBytes;
+  hop::mbar_expect_tx(&full[st], 2 * C::kTileBytes);
+  hop::tma_load_3d(dst, map_a, &full[st], c0, n * C::kSteps, bi);
+  hop::tma_load_3d(dst + C::kTileBytes, map_b, &full[st], c0, n * C::kSteps,
+                   bi);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kChannels)
+linrec_chunked_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const __grid_constant__ CUtensorMap map_out,
+                      const T* __restrict__ h0, T* __restrict__ h_last,
+                      int S, int W) {
+  using C = Chunk<T>;
+  constexpr int TS = C::kSteps;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  unsigned char* ring = smem;
+  T* tiles_out = reinterpret_cast<T*>(smem + 2 * kStages * C::kTileBytes);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + (2 * kStages + 2) * C::kTileBytes);
+  const int c = threadIdx.x;
+  const int c0 = blockIdx.x * kChannels;
+  const int bi = blockIdx.y;
+  const int chunks = (S + TS - 1) / TS;
+
+  if (c == 0) {
+    for (int st = 0; st < kStages; ++st) hop::mbar_init(&full[st], 1);
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+  if (c == 0)
+    for (int n = 0; n < kStages && n < chunks; ++n)
+      load_chunk<T>(ring, full, &map_a, &map_b, n, c0, bi);
+
+  const bool valid = c0 + c < W;
+  const size_t row = (size_t)bi * W + c0 + c;
+  float h = (h0 != nullptr && valid) ? kern::to_f32(h0[row]) : 0.f;
+  for (int n = 0; n < chunks; ++n) {
+    const int st = n % kStages;
+    hop::mbar_wait(&full[st], (n / kStages) & 1);
+    const T* ta = reinterpret_cast<const T*>(ring + 2 * st * C::kTileBytes);
+    const T* tb = ta + TS * kChannels;
+    T* to = tiles_out + (n & 1) * TS * kChannels;
+    const int steps = min(TS, S - n * TS);
+    if (steps == TS) {
+#pragma unroll 16
+      for (int u = 0; u < TS; ++u) {
+        h = kern::to_f32(ta[u * kChannels + c]) * h +
+            kern::to_f32(tb[u * kChannels + c]);
+        to[u * kChannels + c] = kern::from_f32<T>(h);
+      }
+    } else {
+      for (int u = 0; u < steps; ++u) {
+        h = kern::to_f32(ta[u * kChannels + c]) * h +
+            kern::to_f32(tb[u * kChannels + c]);
+        to[u * kChannels + c] = kern::from_f32<T>(h);
+      }
+    }
+    hop::fence_proxy_async();   // this thread's tile writes, before the store
+    if (c == 0) hop::bulk_wait_read<0>();  // store n-1 has read tile (n+1)&1
+    __syncthreads();            // stage st read, tile n&1 written
+    if (c == 0) {
+      hop::tma_store_3d(&map_out, to, c0, n * TS, bi);
+      hop::bulk_commit();
+      if (n + kStages < chunks)
+        load_chunk<T>(ring, full, &map_a, &map_b, n + kStages, c0, bi);
+    }
+  }
+  if (valid) h_last[row] = kern::from_f32<T>(h);
+  if (c == 0) hop::bulk_wait_all();
+}
+
+// The map of a (B, S, W) tensor of T in boxes of kChannels x Chunk<T>::kSteps
+// x 1; false where cuTensorMapEncodeTiled is missing or refuses it.
+template <typename T>
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int W) {
+  hop::EncodeTiledFn encode = hop::encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)W, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * sizeof(T),
+                                 (cuuint64_t)S * W * sizeof(T)};
+  const cuuint32_t box[3] = {kChannels, Chunk<T>::kSteps, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapDataType type = sizeof(T) == 4
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The kernel a call runs, from its shape and alignment alone: the chunked
+// kernel where S >= kMinChunkedSteps and TMA can address the rows (a
+// multiple of 16 bytes, 16-byte aligned tensors), else the loop kernel.
+template <typename T>
+bool use_chunked(const void* a, const void* b, const void* out, int S,
+                 int W) {
+  return S >= kMinChunkedSteps && ((long)W * sizeof(T)) % 16 == 0 &&
+         aligned16(a) && aligned16(b) && aligned16(out);
+}
+
 template <typename T>
 cudaError_t launch(const void* a, const void* b, const void* h0, void* out,
-                   void* h_last, int B, int S, int W, cudaStream_t stream) {
-  const int blocks = (B * W + kThreads - 1) / kThreads;
-  linrec_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(h0), static_cast<T*>(out),
-      static_cast<T*>(h_last), B, S, W);
+                   void* h_last, int B, int S, int W, int* kernel_run,
+                   cudaStream_t stream) {
+  if (!use_chunked<T>(a, b, out, S, W)) {
+    const int blocks = (B * W + kLoopThreads - 1) / kLoopThreads;
+    linrec_loop_kernel<T><<<blocks, kLoopThreads, 0, stream>>>(
+        static_cast<const T*>(a), static_cast<const T*>(b),
+        static_cast<const T*>(h0), static_cast<T*>(out),
+        static_cast<T*>(h_last), B, S, W);
+    *kernel_run = 0;
+    return cudaGetLastError();
+  }
+  // An eligible shape whose maps cannot be made is an error, as in
+  // flash_attention.cu, not a quiet fall back to the loop kernel.
+  CUtensorMap ma, mb, mo;
+  if (!tensor_map<T>(&ma, a, B, S, W) || !tensor_map<T>(&mb, b, B, S, W) ||
+      !tensor_map<T>(&mo, out, B, S, W))
+    return cudaErrorInvalidValue;
+  auto kernel = linrec_chunked_kernel<T>;
+  // Set on every launch: the opt-in is per device, and the call is cheap
+  // and allowed while a stream is captured.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Chunk<T>::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((W + kChannels - 1) / kChannels, B);
+  kernel<<<grid, kChannels, Chunk<T>::kSmemBytes, stream>>>(
+      ma, mb, mo, static_cast<const T*>(h0), static_cast<T*>(h_last), S, W);
+  *kernel_run = 1;
   return cudaGetLastError();
 }
 
@@ -91,15 +273,20 @@ extern "C" const char* linear_recurrence_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16; h0 may be null (a zero state).
-// Returns a cudaError_t (0 on success).
+// *kernel_run is set to the kernel launched: 0 = loop, 1 = chunked (left
+// as it was when nothing is launched).  Returns a cudaError_t (0 on
+// success).
 extern "C" int linear_recurrence_launch(const void* a, const void* b,
                                         const void* h0, void* out,
                                         void* h_last, int dtype, int B,
-                                        int S, int W, void* stream) {
+                                        int S, int W, int* kernel_run,
+                                        void* stream) {
   if (B * W == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, b, h0, out, h_last, B, S, W, s);
+  if (dtype == 0)
+    return launch<float>(a, b, h0, out, h_last, B, S, W, kernel_run, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(a, b, h0, out, h_last, B, S, W, s);
+    return launch<__nv_bfloat16>(a, b, h0, out, h_last, B, S, W, kernel_run,
+                                 s);
   return cudaErrorInvalidValue;
 }

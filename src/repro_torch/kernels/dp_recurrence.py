@@ -6,9 +6,9 @@ plain PyTorch version.
 ``csrc/dp_recurrence.cu`` (what it computes, what bounds it and how it is
 laid out are written at the top of that file).  A CPU tensor goes to
 :func:`dp_recurrence_plain`; a CUDA tensor goes to the kernel, which is
-built at first use, or the call raises.  ``dp_recurrence.launches`` counts
-the kernel launches made: one per (sweep, row), ``n_sweeps * j_max`` for
-each solve.
+built at first use, or the call raises.  The kernel runs a solve as one
+persistent launch, all sweeps included, so ``dp_recurrence.launches``
+grows by 1 a solve.
 
 :func:`dp_recurrence_plain` repeats the kernel's arithmetic in float32
 with the same in-lane recomputation of the failure probability and the
@@ -115,6 +115,8 @@ def _library():
     fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.dp_recurrence_workspace_bytes.argtypes = [ctypes.c_int] * 3
+    lib.dp_recurrence_workspace_bytes.restype = ctypes.c_longlong
     lib.dp_recurrence_error_string.argtypes = [ctypes.c_int]
     lib.dp_recurrence_error_string.restype = ctypes.c_char_p
     return lib
@@ -150,14 +152,15 @@ def dp_recurrence(Fc, Hc, col0, *, grid_dt: float, restart_overhead: float,
     S, T = Fc.shape
     V = torch.empty((S, j_max + 1, T), dtype=torch.float32, device=dev)
     K = torch.empty((S, j_max + 1, T), dtype=torch.int32, device=dev)
-    rcol = torch.empty((S, j_max + 1), dtype=torch.float32, device=dev)
+    work = torch.empty(lib.dp_recurrence_workspace_bytes(S, j_max, t_max),
+                       dtype=torch.uint8, device=dev)
     price = Pc is not None
     with torch.cuda.device(dev):
         err = lib.dp_recurrence_launch(
             Fc.data_ptr(), Hc.data_ptr(), col0.data_ptr(),
             Pc.data_ptr() if price else None,
             Ro.data_ptr() if price else None,
-            V.data_ptr(), K.data_ptr(), rcol.data_ptr(),
+            V.data_ptr(), K.data_ptr(), work.data_ptr(),
             S, j_max, t_max, delta_steps, n_sweeps,
             Pc.shape[1] if price else 0, float(grid_dt),
             float(restart_overhead),
@@ -165,7 +168,7 @@ def dp_recurrence(Fc, Hc, col0, *, grid_dt: float, restart_overhead: float,
     if err != 0:
         raise RuntimeError(f"dp_recurrence kernel failed: cudaError {err} "
                            f"({lib.dp_recurrence_error_string(err).decode()})")
-    dp_recurrence.launches += n_sweeps * j_max
+    dp_recurrence.launches += 1
     return V, K
 
 

@@ -7,7 +7,11 @@ plain PyTorch version.
 the top of that file).  A CPU tensor goes to
 :func:`linear_recurrence_plain`; a CUDA tensor goes to the kernel, which is
 built at first use, or the call raises.  ``linear_recurrence.launches``
-counts the kernel launches made.
+counts the kernel launches made, one a call, and
+``linear_recurrence.launches_by_kernel`` splits them by the kernel the
+launch chose: ``"chunked"`` (the TMA ring, S >= 16 with rows TMA can
+address) or ``"loop"`` (a thread per channel: decode steps and other
+shapes).
 
 :func:`linear_recurrence_plain` is the counterpart of
 ``repro.kernels.ref.linear_recurrence``: a sequential loop with a float32
@@ -65,7 +69,7 @@ def _library():
     lib = _build.load("rglru_scan")
     fn = lib.linear_recurrence_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.linear_recurrence_error_string.argtypes = [ctypes.c_int]
     lib.linear_recurrence_error_string.restype = ctypes.c_char_p
@@ -90,17 +94,24 @@ def linear_recurrence(a, b, h0=None):
     lib = _library()
     out = torch.empty_like(a)
     h_last = torch.empty((B, W), dtype=a.dtype, device=dev)
+    kernel_run = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         err = lib.linear_recurrence_launch(
             a.data_ptr(), b.data_ptr(), None if h0 is None else h0.data_ptr(),
             out.data_ptr(), h_last.data_ptr(), DTYPES[a.dtype], B, S, W,
+            ctypes.byref(kernel_run),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"linear_recurrence kernel failed: cudaError {err} "
             f"({lib.linear_recurrence_error_string(err).decode()})")
-    linear_recurrence.launches += 1
+    if kernel_run.value >= 0:          # B * W == 0 launches nothing
+        linear_recurrence.launches += 1
+        linear_recurrence.launches_by_kernel[
+            _KERNEL_NAMES[kernel_run.value]] += 1
     return out, h_last
 
 
+_KERNEL_NAMES = ("loop", "chunked")
 linear_recurrence.launches = 0
+linear_recurrence.launches_by_kernel = dict.fromkeys(_KERNEL_NAMES, 0)

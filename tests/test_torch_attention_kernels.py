@@ -25,7 +25,8 @@ from repro.kernels.rglru_scan import linear_recurrence as pl_linrec
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.kernels.rglru_scan import linear_recurrence_plain
+from repro_torch.kernels.rglru_scan import (linear_recurrence,
+                                            linear_recurrence_plain)
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 2e-5),
           "bfloat16": (torch.bfloat16, jnp.bfloat16, 2e-2)}
@@ -143,7 +144,12 @@ def test_linear_recurrence_plain_matches_ref_and_pallas(case, dtype):
     tb, jb = _pair(_normal(rng, (B, S, W)), dtype)
     th0, jh0 = _pair(_normal(rng, (B, W)), dtype) if with_h0 \
         else (None, None)
+    counts = (linear_recurrence.launches,
+              dict(linear_recurrence.launches_by_kernel))
     h, h_last = ops.linear_recurrence(ta, tb, th0)
+    # a CPU tensor takes the plain version: no kernel launch is counted
+    assert counts == (linear_recurrence.launches,
+                      linear_recurrence.launches_by_kernel)
     assert h.dtype == ta.dtype and h_last.shape == (B, W)
     assert torch.equal(h_last, h[:, -1])
     # a bf16 output differs by at most one ulp of its magnitude

@@ -10,6 +10,9 @@ The CUDA kernel itself is held to this plain version on the card by
 ``chip_smoke.py``.
 """
 import dataclasses
+import random
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
@@ -246,3 +249,225 @@ def test_wrapper_checks_its_inputs(tdists):
             for k, v in kw.items()}
     with pytest.raises(ValueError, match="not meta"):
         dp_recurrence(**meta)
+
+
+def test_plain_recurrence_breaks_exact_ties_to_the_first_candidate():
+    """With F = H = 0 no VM fails, and at grid_dt = 0.25 with no checkpoint
+    delay every candidate of row j costs exactly j * 0.25 (sums of
+    multiples of 0.25 round to nothing), so the first-match argmin picks
+    i = 1 everywhere.  chip_smoke.py holds the kernel to these tables."""
+    S, j_max, t_max, dt = 3, 40, 96, 0.25
+    Fc = torch.zeros((S, t_max + 1), dtype=torch.float32)
+    Hc = torch.zeros_like(Fc)
+    col0 = TSB.grids.seed_column(Fc, j_max, dt)
+    V, K = dp_recurrence_plain(Fc, Hc, col0, grid_dt=dt, restart_overhead=RO,
+                               j_max=j_max, t_max=t_max, delta_steps=0,
+                               n_sweeps=2)
+    want = (torch.arange(j_max + 1, dtype=torch.float32) * dt)[None, :, None]
+    assert torch.equal(V, want.expand(S, j_max + 1, t_max + 1))
+    assert bool((K[:, 1:] == 1).all()) and bool((K[:, 0] == 0).all())
+
+
+# ---- the CUDA kernel's wavefront schedule, replayed on the CPU ------------
+#
+# dp_recurrence.cu runs a solve as one persistent launch whose blocks claim
+# work items (sweep k, row j, scenario s, 32-age tile) from an atomic
+# ticket and order the rows with per-(s, row, tile) flags.  A missing wait
+# there can pass a run on the card by timing alone, so the emulator below
+# replays the kernel's ticket order and wait rules with a few blocks under
+# adversarial interleavings and checks, at the start and at the end of each
+# read window, that every read of the value table or of the restart-column
+# snapshot sees the value its sweep needs: version k + 1 of row j - i (0 for
+# row 0, which nothing writes) and snapshot version k (col0 is version 0).
+# Versions only grow, so a value seen at both ends of a window was there
+# throughout.  Any change to the kernel's waits, ticket order or
+# snapshot buffers must be made here too; kTile, kGroups and kLag are read
+# from the source.
+
+_DP_CU = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+          "kernels" / "csrc" / "dp_recurrence.cu")
+
+
+def _kernel_constants():
+    """The ``constexpr int`` constants of dp_recurrence.cu, evaluated in
+    order (each is an integer expression of the ones before it)."""
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);",
+                                 _DP_CU.read_text()):
+        env[name] = int(eval(expr, {"__builtins__": {}}, dict(env)))
+    return env
+
+
+def _warp_candidates(j, lag, groups):
+    """The candidates each warp g scans, as the kernel's two loops do:
+    early ones i = g+lag, g+lag+groups, ... <= j; late ones i = g+lag-groups
+    and down by groups while > 0 (and <= j)."""
+    early, late = [], []
+    for g in range(groups):
+        early += range(g + lag, j + 1, groups)
+        late += [i for i in range(g + lag - groups, 0, -groups) if i <= j]
+    return early, late
+
+
+def _emulate_wavefront(*, S, j_max, t_max, delta, n_sweeps, blocks, policy,
+                       seed, mutation=None):
+    c = _kernel_constants()
+    tile_w, groups, lag = c["kTile"], c["kGroups"], c["kLag"]
+    T, J1 = t_max + 1, j_max + 1
+    tiles = (T + tile_w - 1) // tile_w
+    per_row = S * tiles
+    total = n_sweeps * j_max * per_row
+    ver = np.zeros((S, J1, T), dtype=np.int64)   # sweep + 1 of the last write
+    snap = np.full((2, S, J1), -1, dtype=np.int64)
+    snap[0] = 0                                  # col0
+    flags = np.zeros((S, J1, tiles), dtype=np.int64)
+    ticket = [0]
+    rng = random.Random(seed)
+    reads = {}
+
+    def read_set(j, tile):
+        """(rows, ages) of the early and the late candidates' reads."""
+        if (j, tile) not in reads:
+            early, late = _warp_candidates(j, lag, groups)
+            assert sorted(early + late) == list(range(1, j + 1)), (
+                f"row {j}: the warps scan {sorted(early + late)}")
+            t = np.arange(tile * tile_w, min((tile + 1) * tile_w, T))
+            sets = []
+            for cand in (early, late):
+                i = np.asarray(cand, dtype=np.int64)
+                w = np.where(i == j, i, i + delta)
+                e = np.minimum(t[:, None] + w[None, :], t_max)
+                sets.append((np.broadcast_to(j - i, e.shape).ravel(),
+                             e.ravel()))
+            reads[(j, tile)] = sets
+        return reads[(j, tile)]
+
+    def check_reads(rows_ages, s, k, what):
+        rows, ages = rows_ages
+        got = ver[s, rows, ages]
+        want = np.where(rows >= 1, k + 1, 0)
+        bad = np.flatnonzero(got != want)
+        assert bad.size == 0, (
+            f"sweep {k} scenario {s}: {what} read row {rows[bad[0]]} age "
+            f"{ages[bad[0]]} at version {got[bad[0]]}, needs {want[bad[0]]}")
+
+    def row_ready(s, r, k, tile, reach):
+        last = min(tile * tile_w + tile_w - 1 + reach, t_max) // tile_w
+        return bool((flags[s, r, tile:last + 1] >= k + 1).all())
+
+    def early_ready(k, j, s, tile):
+        if mutation == "no early wait":
+            return True
+        if j - lag >= 1:
+            r = j - lag - 1 if mutation == "early wait too old" else j - lag
+            reach = lag + delta - (mutation == "early wait one age short")
+            return r < 1 or row_ready(s, r, k, tile, reach)
+        if k > 0 and mutation != "no sweep barrier":
+            return bool((flags[s, j_max] >= k).all())
+        return True
+
+    def late_ready(k, j, s, tile):
+        reach = {"short late wait": 0, "late wait one age short": delta}.get(
+            mutation, 1 + delta)
+        return j < 2 or row_ready(s, j - 1, k, tile, reach)
+
+    def block():
+        """One persistent block: yields (guard, tag) before each step the
+        adversary may delay; a guard is a wait that must hold first."""
+        while True:
+            yield None, "claim"
+            n = ticket[0]
+            ticket[0] += 1
+            if n >= total:
+                return
+            r, within = divmod(n, per_row)
+            k, j = r // j_max, r % j_max + 1
+            tile, s = tiles - 1 - within // S, within % S
+            early, late = read_set(j, tile)
+            buf = 0 if mutation == "one snapshot buffer" else k & 1
+            yield (lambda: early_ready(k, j, s, tile)), "open"
+            for _ in range(2):          # the early window's two ends
+                assert snap[buf, s, j] == k, (
+                    f"sweep {k} scenario {s} row {j}: restart column at "
+                    f"version {snap[buf, s, j]}, needs {k}")
+                check_reads(early, s, k, "an early candidate")
+                yield None, "close"
+            yield (lambda: late_ready(k, j, s, tile)), "open"
+            for _ in range(2):          # the late window's two ends
+                check_reads(late, s, k, "a late candidate")
+                yield None, "close"
+            ver[s, j, tile * tile_w:(tile + 1) * tile_w] = k + 1
+            if tile == 0:
+                nbuf = 0 if mutation == "one snapshot buffer" else (k + 1) & 1
+                snap[nbuf, s, j] = k + 1
+            yield None, "release"
+            flags[s, j, tile] = k + 1
+
+    state = []             # [generator, guard, tag, ticket held, slow]
+    for _ in range(blocks):
+        gen = block()
+        guard, tag = next(gen)
+        state.append([gen, guard, tag, -1, False])
+    while state:
+        ready = [b for b in state if b[1] is None or b[1]()]
+        assert ready, f"deadlock: {len(state)} blocks wait, none can run"
+        if policy == "random":
+            pick = rng.choice(ready)
+        elif policy == "newest":   # later items run as far ahead as allowed
+            pick = max(ready, key=lambda b: (b[2] == "claim", b[3]))
+        elif policy == "stall":    # read windows stay open longest
+            keep_open = [b for b in ready if b[2] != "close"]
+            pick = rng.choice(keep_open or ready)
+        else:                      # "starve": a third of the items crawl
+            fast = [b for b in ready if not b[4]]
+            pick = rng.choice(fast if fast and rng.random() > 0.01 else ready)
+        if pick[2] == "claim":
+            pick[3] = ticket[0]
+            pick[4] = rng.random() < 1 / 3
+        try:
+            pick[1], pick[2] = next(pick[0])
+        except StopIteration:
+            state.remove(pick)
+    assert ticket[0] >= total
+    assert (ver[:, 1:] == n_sweeps).all() and (ver[:, 0] == 0).all()
+    assert (flags[:, 1:] == n_sweeps).all()
+
+
+_SCHEDULE = dict(S=2, j_max=21, t_max=100, n_sweeps=3)
+
+
+# Blocks up to 96 let ~10 rows of 8 items be in flight at once, as many
+# resident blocks do on the card for a solve of few scenarios.  A delta of
+# 0 or 24 puts the late or the early wait's last age on a tile's first age,
+# where a wait one age short misses a tile.
+@pytest.mark.parametrize("policy,blocks,delta,seed", [
+    ("random", 3, 0, 0), ("random", 96, 1, 1), ("newest", 96, 24, 0),
+    ("newest", 1, 1, 0), ("stall", 9, 2, 2), ("stall", 96, 0, 3),
+    ("starve", 96, 24, 4), ("starve", 16, 1, 5)])
+def test_wavefront_schedule_reads_only_final_values(policy, blocks, delta,
+                                                     seed):
+    """Under every interleaving tried, each read of the kernel's wavefront
+    sees the final value of its own sweep, no block deadlocks, and every
+    row ends at the last sweep."""
+    _emulate_wavefront(**_SCHEDULE, delta=delta, blocks=blocks,
+                       policy=policy, seed=seed)
+
+
+@pytest.mark.parametrize("mutation,delta", [
+    ("no early wait", 1), ("early wait too old", 1),
+    ("early wait one age short", 24), ("short late wait", 1),
+    ("late wait one age short", 0), ("no sweep barrier", 1),
+    ("one snapshot buffer", 1)])
+def test_wavefront_emulator_catches_a_broken_wait(mutation, delta):
+    """Each of these broken variants of the schedule lets some read see a
+    value of the wrong sweep under one of the interleavings tried, so the
+    emulator can tell a sound schedule from a broken one."""
+    caught = []
+    for policy, blocks, seed in [("newest", 96, 0), ("starve", 96, 1),
+                                 ("stall", 96, 4), ("random", 5, 3)]:
+        try:
+            _emulate_wavefront(**_SCHEDULE, delta=delta, blocks=blocks,
+                               policy=policy, seed=seed, mutation=mutation)
+        except AssertionError as err:
+            caught.append(str(err))
+    assert caught, f"no interleaving exposed the mutation {mutation!r}"
