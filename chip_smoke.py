@@ -77,6 +77,25 @@ Phases, each of which exits nonzero on failure:
    events under torch.profiler (one launch a call); a torch.profiler
    window over one prefill and over one batch's decode steps for the
    device's busy share and the kernels that take the time.
+9. Batch service: the paper's Fig. 8 sweep, ``scenarios.sweep_service``
+   (batched) over the 8-scenario default grid x 4 policies (model,
+   memoryless, each with and without "+deflate") x 10 seeds = 320 lanes,
+   bags of 100 jobs of ~2 h on 32-VM clusters, on the card, with the
+   kernels' launch counters reset before and read after (the path runs no
+   hand-written kernel).  Checks: every lane finished with no pool
+   exhaustion, truncation or deadlock; the rows equal the lanes rerun on
+   the same inputs; card and CPU bit-identical on one pool and table
+   (every field); the serial heap loop bit-identical, per job, for model
+   and memoryless x 10 seeds in two scenarios; a 6 h deadline rejects
+   jobs in some lanes and stays bit-identical card vs CPU; a seeded priced
+   run's dollars bit-identical card vs CPU; every row's cost reduction
+   finite and above 1 (printed per policy).
+10. Service timing: the sweep's ms (median of 5 after a warm-up, final
+   synchronize), the loop's ms, steps, ms per step and events/s, the
+   reuse table's and the pools' ms; the scale point (50 memoryless lanes
+   on 2,000-job bags, cluster 32, pools of 8,000) timed once after a
+   warm-up on a tenth of each bag; one sweep under torch.profiler for
+   the device's busy share and top device events.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -120,6 +139,23 @@ LOGIT_TOL_BF16 = 0.5
 # kernels' online softmax, the CPU) and move logits of order one by
 # ~1e-5.
 LOGIT_TOL_F32 = 1e-3
+
+
+# the service cell: the paper's Fig. 8 setup (benchmarks/service_bench.py,
+# fig8_service.py) over the default grid: bags of 100 jobs of ~2 h (jitter
+# 0.1) on 32-VM clusters, 10 seeds, 4 policies, 8 scenarios = 320 lanes
+SVC_POLICIES = ("model", "memoryless", "model+deflate", "memoryless+deflate")
+SVC_SEEDS = tuple(range(10))
+SVC_JOBS, SVC_HOURS, SVC_JITTER, SVC_CLUSTER, SVC_POOL = 100, 2.0, 0.1, 32, 4096
+SVC_SWEEP = dict(policies=SVC_POLICIES, cluster_sizes=(SVC_CLUSTER,),
+                 seeds=SVC_SEEDS, n_jobs=SVC_JOBS, job_hours=SVC_HOURS,
+                 jitter=SVC_JITTER, pool_size=SVC_POOL, mode="batched")
+SVC_SERIAL_SCENARIOS = (0, 5)  # scenarios replayed by the serial heap loop
+SVC_DEADLINE = 6.0             # hours, the admission-control run
+SVC_PRICE_SEED, SVC_PRICE_CELLS, SVC_PRICE_DT = 0, 96, 0.25
+# the scale point (service_bench.py's at its quick size): 50 memoryless
+# lanes on 2 bags of 2,000 jobs, pools of 8,000 lifetimes
+SCALE_VM, SCALE_LANES, SCALE_JOBS, SCALE_BAGS = "n1-highcpu-32", 50, 2000, 2
 
 
 class SmokeFailure(RuntimeError):
@@ -756,6 +792,258 @@ def serving_timing(torch, model, main_inputs):
     return serving, {"flash_attention": flash, "decode_attention": decode_k,
                      "linear_recurrence": rec}
 
+# ---------------------------------------------------------------------------
+# the batch-service slice
+# ---------------------------------------------------------------------------
+
+def service_inputs(dev, **over):
+    """The Fig. 8 sweep's cells and the batched loop's inputs for them on
+    ``dev``, built as ``scenarios.sweep_service(mode="batched")`` builds
+    them: (cells, bag lengths by seed, reuse tables, keywords)."""
+    from repro_torch.core import engine, scenarios, service, service_kernel
+    grid = scenarios.default_grid()
+    dists = [sc.dist() for sc in grid]
+    tables = engine.ReuseTables(dists, service.grid_reuse_values(
+        dists[0], seeds=SVC_SEEDS, n_jobs=SVC_JOBS, job_hours=SVC_HOURS,
+        jitter=SVC_JITTER), device=dev)
+    lengths = {s: service._bag_lengths(SVC_JOBS, SVC_HOURS, SVC_JITTER, s)
+               for s in SVC_SEEDS}
+    cells = [dict(dist_index=si, vm_type=sc.vm_type, policy=p,
+                  cluster_size=SVC_CLUSTER, seed=seed)
+             for si, sc in enumerate(grid) for p in SVC_POLICIES
+             for seed in SVC_SEEDS]
+    kw = service_kernel.cell_inputs(
+        cells=cells, dists=dists, lengths_by_seed=lengths,
+        reuse_tables=tables, pool_size=SVC_POOL, device=dev, **over)
+    return cells, lengths, tables, kw
+
+
+def same_lanes(torch, label, a, b):
+    """Every field of two ``ServiceBatchResult`` equal to the bit, NaN
+    positions included."""
+    import dataclasses
+    differ = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray):
+            same = x.dtype == y.dtype and x.shape == y.shape and \
+                np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+        else:
+            same = x == y
+        if not same:
+            differ.append(f.name)
+    print(f"[service] {label}: {len(a)} lanes, every field bit-identical "
+          f"{not differ}" + (f" (differ: {differ})" if differ else ""))
+    check(not differ, f"{label}: fields differ: {differ}")
+
+
+def lanes_finished(res, label, deadline=False):
+    """Every lane ran to its end: no pool exhaustion, truncation or
+    deadlock, and every job finished (or, under a deadline, was
+    rejected)."""
+    done = ~np.isnan(res.finished_time) | res.rejected
+    check(not res.pool_exhausted.any(), f"{label}: a pool ran out")
+    check(not res.truncated.any(), f"{label}: a lane hit max_steps")
+    check(not res.deadlocked.any(), f"{label}: a lane deadlocked")
+    check(bool(done.all()), f"{label}: unfinished jobs")
+    check(deadline or not res.rejected.any(), f"{label}: rejections")
+
+
+def service_path(torch, counters):
+    """Phase 9; returns the sweep's rows, the batched inputs and result on
+    the card, and the launch counts of the sweep's run."""
+    from repro_torch.core import scenarios, service, service_kernel as SK
+    grid = scenarios.default_grid()
+    sweep_kw = dict(SVC_SWEEP, device="cuda")
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows = scenarios.sweep_service(grid, **sweep_kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"[service] sweep_service: {len(rows)} rows (8 scenarios x "
+          f"{len(SVC_POLICIES)} policies x {len(SVC_SEEDS)} seeds, "
+          f"{SVC_JOBS} jobs of ~{SVC_HOURS} h, cluster {SVC_CLUSTER}) in "
+          f"{first_s:.2f} s; kernel launches in that run {launches} (the "
+          f"service path runs no hand-written kernel)")
+    check(len(rows) == len(grid) * len(SVC_POLICIES) * len(SVC_SEEDS),
+          f"{len(rows)} service rows")
+
+    cells, lengths, tables, kw = service_inputs("cuda")
+    res = SK.simulate_service_batch(**kw, on_exhausted="flag", device="cuda")
+    lanes_finished(res, "sweep")
+    fields = ("makespan", "vm_hours", "cost", "on_demand_cost",
+              "n_preemptions", "n_job_failures", "n_deflations",
+              "n_rejected")
+    for i, (row, cell) in enumerate(zip(rows, cells)):
+        lane = SK.lane_result(res, i, lengths[cell["seed"]], cell["vm_type"])
+        check(all(row[k] == getattr(lane, k) for k in fields)
+              and row["policy"] == cell["policy"]
+              and row["seed"] == cell["seed"],
+              f"sweep row {i} differs from lane {i}")
+    print(f"[service] the sweep's rows equal its lanes rerun on the same "
+          f"inputs; loop steps {res.loop_steps}, lane steps "
+          f"{int(res.steps.min())}-{int(res.steps.max())}, events "
+          f"{int(res.n_events.sum())}")
+
+    def on_cpu(kw):
+        return {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                for k, v in kw.items()}
+
+    same_lanes(torch, "Fig. 8 sweep, card vs CPU on one pool and table", res,
+               SK.simulate_service_batch(**on_cpu(kw), on_exhausted="flag",
+                                         device="cpu"))
+
+    # the serial heap loop on the same pools and tables
+    n = 0
+    for si in SVC_SERIAL_SCENARIOS:
+        view = tables.view(si)
+        for i, cell in enumerate(cells):
+            base, deflate = SK.split_policy(cell["policy"])
+            if cell["dist_index"] != si or deflate:
+                continue
+            pool = kw["pools"][kw["pool_index"][i]].cpu().numpy()
+            got = service.BatchService(
+                grid[si].dist(), vm_type=cell["vm_type"],
+                cluster_size=SVC_CLUSTER, policy=base, seed=cell["seed"],
+                reuse_table=view if base == "model" else None,
+                lifetime_pool=pool, pool_size=SVC_POOL,
+                device="cuda").run(lengths[cell["seed"]])
+            want = SK.lane_result(res, i, lengths[cell["seed"]],
+                                  cell["vm_type"], jobs=True)
+            same = all(getattr(got, k) == getattr(want, k)
+                       for k in fields + ("dollars",)) and all(
+                (g.finished, g.attempts, g.failures, g.done_work)
+                == (w.finished, w.attempts, w.failures, w.done_work)
+                for g, w in zip(got.jobs, want.jobs))
+            check(same, f"serial heap loop differs from lane {i} "
+                        f"({cell})")
+            n += 1
+    print(f"[service] serial heap loop: {n} cells (scenarios "
+          f"{[grid[si].name for si in SVC_SERIAL_SCENARIOS]} x model, "
+          f"memoryless x {len(SVC_SEEDS)} seeds) bit-identical to their "
+          f"lanes, per job too")
+
+    # deadline admission control, through the public sweep and on one pool
+    d_rows = scenarios.sweep_service(
+        grid, **dict(sweep_kw, deadline_hours=SVC_DEADLINE))
+    _, _, _, kw_d = service_inputs("cuda", deadline_hours=SVC_DEADLINE)
+    res_d = SK.simulate_service_batch(**kw_d, on_exhausted="flag",
+                                      device="cuda")
+    lanes_finished(res_d, "deadline", deadline=True)
+    check([r["n_rejected"] for r in d_rows] == res_d.n_rejected.tolist(),
+          "deadline sweep rows differ from their lanes")
+    check(int(res_d.n_rejected.sum()) > 0, "the 6 h deadline rejected none")
+    print(f"[service] deadline {SVC_DEADLINE} h: {int(res_d.n_rejected.sum())}"
+          f" of {res_d.rejected.size} jobs rejected, in "
+          f"{int((res_d.n_rejected > 0).sum())} of {len(res_d)} lanes")
+    same_lanes(torch, f"deadline {SVC_DEADLINE} h, card vs CPU", res_d,
+               SK.simulate_service_batch(**on_cpu(kw_d), on_exhausted="flag",
+                                         device="cpu"))
+
+    # market billing on a seeded, strictly positive (B, Tp) price row
+    prices = np.random.default_rng(SVC_PRICE_SEED).uniform(
+        0.5, 2.0, size=(len(cells), SVC_PRICE_CELLS))
+    kw_p = dict(kw, price_rows=prices, price_dt=SVC_PRICE_DT)
+    res_p = SK.simulate_service_batch(**kw_p, on_exhausted="flag",
+                                      device="cuda")
+    lanes_finished(res_p, "priced")
+    check(res_p.priced and not np.array_equal(res_p.dollars,
+                                              res_p.vm_hours),
+          "priced run billed unit prices")
+    same_lanes(torch, "priced, card vs CPU", res_p,
+               SK.simulate_service_batch(**on_cpu(kw_p), on_exhausted="flag",
+                                         device="cpu"))
+    print(f"[service] priced: dollars {float(res_p.dollars.min()):.4f}-"
+          f"{float(res_p.dollars.max()):.4f} per lane")
+
+    for r in rows:
+        check(np.isfinite(r["cost_reduction"]) and r["cost_reduction"] > 1.0,
+              f"row {r['scenario']}/{r['policy']}/{r['seed']}: cost "
+              f"reduction {r['cost_reduction']}")
+    for p in SVC_POLICIES:
+        cr = [r["cost_reduction"] for r in rows if r["policy"] == p]
+        fr = [r["job_failure_rate"] for r in rows if r["policy"] == p]
+        print(f"[service] {p:19s} cost reduction {min(cr):.3f}-{max(cr):.3f}"
+              f"x (mean {statistics.mean(cr):.3f}), job failure rate mean "
+              f"{statistics.mean(fr):.4f}")
+    return rows, kw, res, launches
+
+
+def service_timing(torch, kw, res, smi):
+    """Phase 10: the sweep's and the loop's times, steps, events/s, the
+    scale point's events/s and the sweep's device busy share."""
+    from repro_torch.core import distributions as TD
+    from repro_torch.core import engine, scenarios, service
+    from repro_torch.core import service_kernel as SK
+    grid = scenarios.default_grid()
+    sweep_kw = dict(SVC_SWEEP, device="cuda")
+    sweep_ms = host_ms(torch, lambda: scenarios.sweep_service(grid,
+                                                              **sweep_kw))
+    loop_ms = host_ms(torch, lambda: SK.simulate_service_batch(
+        **kw, device="cuda"))
+    # the sweep's set-up outside the loop: the reuse table and the pools
+    dists = [sc.dist() for sc in grid]
+    values = service.grid_reuse_values(dists[0], seeds=SVC_SEEDS,
+                                       n_jobs=SVC_JOBS, job_hours=SVC_HOURS,
+                                       jitter=SVC_JITTER)
+    table_ms = host_ms(torch, lambda: engine.ReuseTables(dists, values,
+                                                         device="cuda"))
+    pool_ms = host_ms(torch, lambda: SK.draw_service_pool_batch(
+        [d for d in dists for _ in SVC_SEEDS],
+        [s for _ in dists for s in SVC_SEEDS], size=SVC_POOL,
+        device="cuda"))
+    events = int(res.n_events.sum())
+    # the scale point: memoryless lanes on 2,000-job bags
+    dist = TD.constrained_for(SCALE_VM)
+    seeds = list(range(SCALE_BAGS))
+    bags = np.stack([service._bag_lengths(SCALE_JOBS, SVC_HOURS, SVC_JITTER,
+                                          s) for s in seeds])
+    pools = SK.draw_service_pool_batch([dist] * SCALE_BAGS, seeds,
+                                       size=4 * SCALE_JOBS, device="cuda")
+    skw = dict(lengths=bags, pools=pools,
+               bag_index=[i % SCALE_BAGS for i in range(SCALE_LANES)],
+               pool_index=[i % SCALE_BAGS for i in range(SCALE_LANES)],
+               policy=["memoryless"] * SCALE_LANES,
+               cluster_size=[SVC_CLUSTER] * SCALE_LANES, device="cuda")
+    # warm-up on a tenth of each bag: the loop compiles nothing, so the
+    # warm-up needs the same operations, not the same length
+    SK.simulate_service_batch(**dict(skw, lengths=bags[:, :SCALE_JOBS // 10]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big = SK.simulate_service_batch(**skw)
+    torch.cuda.synchronize()
+    scale_s = time.perf_counter() - t0
+    lanes_finished(big, "scale point")
+    big_events = int(big.n_events.sum())
+    wall, dev_ms, prof_rows = profile_window(
+        torch, lambda: scenarios.sweep_service(grid, **sweep_kw), top=10)
+    busy = None if dev_ms is None else dev_ms / wall
+    print(f"[profile] service sweep: wall {wall:.2f} ms, device busy "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms (share "
+          f"{busy if busy is None else round(busy, 4)}); device events:")
+    for name, ms, calls in prof_rows:
+        print(f"[profile] service   {ms:9.3f} ms  {calls:7d} x  {name}")
+    timing = {
+        "service_sweep_ms": sweep_ms, "service_loop_ms": loop_ms,
+        "reuse_table_ms": table_ms, "pool_draw_ms": pool_ms,
+        "loop_steps": res.loop_steps,
+        "lane_steps_max": int(res.steps.max()),
+        "ms_per_step": loop_ms / res.loop_steps,
+        "sweep_events": events,
+        "sweep_events_per_s": events / (sweep_ms / 1e3),
+        "scale_lanes": SCALE_LANES, "scale_jobs": SCALE_JOBS,
+        "scale_s": scale_s, "scale_loop_steps": big.loop_steps,
+        "scale_ms_per_step": scale_s * 1e3 / big.loop_steps,
+        "scale_events": big_events,
+        "scale_events_per_s": big_events / scale_s,
+        "sweep_profiled_wall_ms": wall, "sweep_device_ms": dev_ms,
+        "sweep_device_busy_share": busy, "card": smi}
+    print("[timing] service " + json.dumps(timing))
+    return timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -949,6 +1237,19 @@ def main() -> int:
     serving.update(serve_checks)
     serving["card"] = smi
     print("[timing] serving " + json.dumps(serving))
+    del model
+    torch.cuda.empty_cache()
+
+    # -- 9. the batch service (Fig. 8) ---------------------------------------
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import linear_recurrence
+    _, svc_kw, svc_res, _ = service_path(
+        torch, (dp_recurrence, flash_attention, decode_attention,
+                linear_recurrence))
+
+    # -- 10. service timing -------------------------------------------------
+    service_timing(torch, svc_kw, svc_res, smi)
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),

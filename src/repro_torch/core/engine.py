@@ -10,7 +10,9 @@ integer grid steps and the only float accumulation is the sum of preempted
 partial segments, so on a shared pool each lane performs the same IEEE
 operations as ``repro``'s executor under x64 and the makespans agree to the
 bit.  Pools are drawn from ``numpy.random.default_rng`` uniforms in
-``repro``'s order and inverted on the device.
+``repro``'s order and inverted on the device.  :class:`ReuseTables` holds
+the batch service's reuse decisions for every scenario, evaluated in one
+call on the device, with a host copy for the serial event loop.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch
 
 from ..device import resolve_device
 from . import distributions as dists_mod
+from .policies import scheduling as sched_policy
 
 _F64 = torch.float64
 
@@ -350,3 +353,96 @@ def simulate_makespan_batch(policy_table, job_steps: int, *, first, pool,
     if return_finished:
         return out, finished
     return out
+
+
+# ---------------------------------------------------------------------------
+# reuse decisions for the batch service
+# ---------------------------------------------------------------------------
+
+def _reuse_grid_batch(dists, T_values, L: float, n_age: int, device):
+    """``(S, len(T_values), n_age)`` Eq. 10 < Eq. 9 decisions for a list of
+    distributions, in one broadcast evaluation on ``device``.  Both sides
+    are evaluated on full ``(S, T, n_age)`` operands, so at age 0 (where
+    Eq. 10 and Eq. 9 are the same expression) every element takes the
+    same arithmetic path on both sides and the tie stays a tie."""
+    eff = [d.effective() if hasattr(d, "effective") else d for d in dists]
+    stacked = dists_mod.stack(eff, device=device)
+    d_b = dataclasses.replace(stacked, **{
+        f.name: getattr(stacked, f.name)[:, None, None]
+        for f in dataclasses.fields(stacked)})
+    shape = (len(eff), len(T_values), int(n_age))
+    T = torch.as_tensor(T_values, dtype=_F64, device=device)
+    age = torch.as_tensor(sched_policy.linspace(0.0, L, n_age), device=device)
+    T = T[None, :, None].expand(shape).contiguous()
+    age = age[None, None, :].expand(shape).contiguous()
+    return sched_policy.reuse_decision(d_b, T, age)
+
+
+class ReuseTable:
+    """Precomputed reuse decisions over (remaining work x VM age) for one
+    distribution.
+
+    ``T_values`` is exact in the remaining-work axis; ages are quantized to
+    ``n_age`` points over [0, L] (nearest), 1-min resolution by default.
+    ``table`` is the host numpy copy the serial event loop reads through
+    :meth:`decide`; ``tensor`` the same booleans on the device.
+    """
+
+    def __init__(self, dist, T_values, *, n_age: int = 1441,
+                 device="cuda", _table=None):
+        self.T_values = np.asarray(np.sort(np.unique(T_values)), np.float64)
+        self.L = float(torch.as_tensor(dist.L).reshape(-1)[0])
+        self.n_age = int(n_age)
+        if _table is None:
+            dev = resolve_device(device)
+            _table = _reuse_grid_batch([dist], self.T_values, self.L,
+                                       self.n_age, dev)[0]
+        self.tensor = _table
+        self.table = _table.cpu().numpy()
+
+    def decide(self, remaining_work: float, vm_age: float) -> bool:
+        ti = int(np.searchsorted(self.T_values, remaining_work))
+        if ti >= len(self.T_values) or (
+                ti > 0 and remaining_work - self.T_values[ti - 1]
+                < self.T_values[ti] - remaining_work):
+            ti -= 1
+        ai = int(round(vm_age / self.L * (self.n_age - 1)))
+        return bool(self.table[ti, min(max(ai, 0), self.n_age - 1)])
+
+
+class ReuseTables:
+    """Every scenario's reuse-decision grid as one ``(S, len(T_values),
+    n_age)`` boolean tensor on the device (``tensor``), from ONE batched
+    evaluation, with its host copy ``tables``; :meth:`view` (or indexing,
+    iteration) gives per-scenario :class:`ReuseTable` views over them.  All
+    scenarios must share the deadline ``L``."""
+
+    def __init__(self, dists, T_values, *, n_age: int = 1441,
+                 device="cuda"):
+        dev = resolve_device(device)
+        self._dists = list(dists)
+        if not self._dists:
+            raise ValueError("ReuseTables needs at least one distribution")
+        Ls = [float(d.L) for d in self._dists]
+        if any(abs(x - Ls[0]) > 1e-12 for x in Ls[1:]):
+            raise ValueError("ReuseTables requires a shared L")
+        self.T_values = np.asarray(np.sort(np.unique(T_values)), np.float64)
+        self.L = Ls[0]
+        self.n_age = int(n_age)
+        self.tensor = _reuse_grid_batch(self._dists, self.T_values, self.L,
+                                        self.n_age, dev)
+        self.tables = self.tensor.cpu().numpy()
+
+    def __len__(self) -> int:
+        return len(self._dists)
+
+    def view(self, s: int) -> ReuseTable:
+        """A per-scenario :class:`ReuseTable` over the shared tensor."""
+        return ReuseTable(self._dists[s], self.T_values, n_age=self.n_age,
+                          _table=self.tensor[s])
+
+    def __getitem__(self, s: int) -> ReuseTable:
+        return self.view(s)
+
+    def __iter__(self):
+        return (self.view(s) for s in range(len(self)))

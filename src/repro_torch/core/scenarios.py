@@ -6,7 +6,9 @@ type - and resolves to a :class:`~repro_torch.core.distributions.
 DiurnalConstrained` model.  :func:`sweep_checkpointing` expands
 (scenario x policy x seed) into one DP solve, one pool draw and one
 executor run on the device, and returns one row per cell in ``repro``'s
-row order and schema.
+row order and schema.  :func:`sweep_service` expands
+(scenario x policy x cluster_size x seed) over the batch service, serially
+on the host or as one batched loop on the device.
 """
 from __future__ import annotations
 
@@ -20,11 +22,13 @@ import torch
 from ..device import resolve_device
 from . import distributions as dists
 from . import engine
+from . import service as service_mod
 from .policies import checkpointing as ckpt
 from .policies import young_daly as yd
 
 __all__ = ["Scenario", "register", "get", "names", "default_grid",
-           "sweep_checkpointing", "PHASE_CLOCKS", "ZONE_PARAMS"]
+           "sweep_checkpointing", "sweep_service", "PHASE_CLOCKS",
+           "ZONE_PARAMS"]
 
 # Wall-clock launch hour per diurnal phase label.
 PHASE_CLOCKS: Dict[str, float] = {"day": 20.0, "night": 8.0, "shoulder": 14.0}
@@ -247,4 +251,96 @@ def sweep_checkpointing(scenarios: Iterable, *,
             scs[s], policy, seed, mk_b[b], fin_b[b], n_trials=n_trials,
             job_steps=job_steps, p_fail_fresh=p_fail_fresh[s],
             expected_makespan_dp=expected[s]))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# batch-service sweep
+# ---------------------------------------------------------------------------
+
+def sweep_service(scenarios: Iterable, *,
+                  policies: Sequence[str] = ("model", "memoryless"),
+                  cluster_sizes: Sequence[int] = (16,),
+                  seeds: Sequence[int] = (0,), n_jobs: int = 40,
+                  job_hours: float = 2.0, jitter: float = 0.1,
+                  mode: str = "serial", pool_size: int = 4096,
+                  deadline_hours=None, deflate_factor: float = 0.5,
+                  device="cuda", **kw) -> list:
+    """Expand (scenario x policy x cluster_size x seed) over the batch
+    service.  The model policy's reuse grids for ALL scenarios are one
+    :class:`engine.ReuseTables` evaluation on ``device``, over the
+    remaining-work values of the first scenario's grid (the bag lengths
+    depend only on the seeds, so every scenario shares one axis).
+
+    ``mode="serial"`` (ground truth) runs each scenario's cells through
+    ``service.run_bag_grid`` with its view of that table, the event loops
+    on the host; ``mode="batched"`` runs EVERY cell as one lane of one
+    ``service_kernel`` loop on ``device``, and also allows
+    ``deadline_hours`` admission control and ``"+deflate"`` policies.
+    Returns flat dict rows with the headline service metrics, in
+    ``repro``'s order and schema.
+    """
+    from . import service_kernel
+    dev = resolve_device(device)
+    if mode not in ("serial", "batched"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if mode == "serial" and deadline_hours is not None:
+        raise ValueError("deadline admission control needs mode='batched'")
+    scs = _resolve(scenarios)
+    policies = tuple(policies)
+    dist_list = [sc.dist() for sc in scs]
+    bases = [service_kernel.split_policy(p)[0] for p in policies]
+    tables = None
+    if "model" in bases and kw.get("vectorized_reuse", True):
+        tables = engine.ReuseTables(
+            dist_list,
+            service_mod.grid_reuse_values(dist_list[0], seeds=tuple(seeds),
+                                          n_jobs=n_jobs, job_hours=job_hours,
+                                          jitter=jitter, **kw),
+            device=dev)
+
+    def _row(sc, cell):
+        r = cell["result"]
+        return dict(
+            sc.coords(), policy=cell["policy"],
+            cluster_size=cell["cluster_size"], seed=cell["seed"],
+            n_jobs=n_jobs, job_hours=job_hours,
+            makespan=r.makespan, vm_hours=r.vm_hours, cost=r.cost,
+            on_demand_cost=r.on_demand_cost,
+            cost_reduction=r.cost_reduction,
+            n_preemptions=r.n_preemptions,
+            n_job_failures=r.n_job_failures,
+            n_deflations=r.n_deflations, n_rejected=r.n_rejected,
+            job_failure_rate=r.n_job_failures / max(n_jobs, 1))
+
+    if mode == "batched":
+        lengths = {s: service_mod._bag_lengths(n_jobs, job_hours, jitter, s)
+                   for s in seeds}
+        cells = [dict(dist_index=si, vm_type=sc.vm_type, policy=policy,
+                      cluster_size=cs, seed=seed)
+                 for si, sc in enumerate(scs)
+                 for policy, cs, seed in itertools.product(
+                     policies, tuple(cluster_sizes), tuple(seeds))]
+        grid = service_kernel.run_cells_batched(
+            cells=cells, dists=dist_list, lengths_by_seed=lengths,
+            reuse_tables=tables, pool_size=pool_size,
+            deadline_hours=deadline_hours, deflate_factor=deflate_factor,
+            checkpointing=kw.get("checkpointing", False),
+            ckpt_interval=kw.get("ckpt_interval", 0.5),
+            ckpt_cost=kw.get("ckpt_cost", 1.0 / 60.0),
+            return_jobs=False, device=dev)
+        per_sc = len(grid) // max(len(scs), 1)
+        return [_row(scs[i // per_sc], cell) for i, cell in enumerate(grid)]
+
+    rows = []
+    for si, sc in enumerate(scs):
+        dist = dist_list[si]
+        grid = service_mod.run_bag_grid(
+            vm_types=(sc.vm_type,), policies=policies,
+            cluster_sizes=tuple(cluster_sizes), seeds=tuple(seeds),
+            n_jobs=n_jobs, job_hours=job_hours, jitter=jitter,
+            dist_for=lambda _vm_type, dist=dist: dist, pool_size=pool_size,
+            reuse_table=tables.view(si) if tables is not None else None,
+            device=dev, **kw)
+        rows.extend(_row(sc, cell) for cell in grid)
     return rows

@@ -60,7 +60,7 @@ def test_default_device_raises_without_a_gpu():
         pytest.skip("a GPU is present: the default device is usable here")
     from repro_torch import configs, resolve_device
     from repro_torch.core import distributions as TD
-    from repro_torch.core import engine, scenarios
+    from repro_torch.core import engine, scenarios, service, service_kernel
     from repro_torch.core.policies import checkpointing
     from repro_torch.fault import PreemptionSource
     from repro_torch.launch import serve
@@ -82,6 +82,21 @@ def test_default_device_raises_without_a_gpu():
         lambda: serve.serve_batch(cfg, None, [[1, 2, 3]]),
         lambda: serve.main(["--arch", "recurrentgemma-2b", "--smoke"]),
         lambda: PreemptionSource(d),
+        lambda: engine.ReuseTable(d, [1.0]),
+        lambda: engine.ReuseTables([d], [1.0]),
+        lambda: service.draw_service_pool(d, seed=0, size=4),
+        lambda: service.BatchService(d),
+        lambda: service.run_bag(d, n_jobs=2),
+        lambda: service.run_bag_grid(n_jobs=2),
+        lambda: service.run_bag_grid(n_jobs=2, mode="batched"),
+        lambda: service_kernel.draw_service_pool_batch([d], [0], size=4),
+        lambda: service_kernel.simulate_service_batch(
+            lengths=[[1.0]], pools=[[2.0]], bag_index=0, pool_index=0,
+            policy="memoryless", cluster_size=1),
+        lambda: scenarios.sweep_service(scenarios.default_grid()[:1],
+                                        n_jobs=2),
+        lambda: scenarios.sweep_service(scenarios.default_grid()[:1],
+                                        n_jobs=2, mode="batched"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
