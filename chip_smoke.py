@@ -24,7 +24,8 @@ Phases, each of which exits nonzero on failure:
    ties: with F = H = 0 at dt = 0.25 and no checkpoint delay every
    candidate of row j costs j * 0.25, so V and K must equal the plain
    version's exactly, with K == 1 on every row j >= 1 (the first-match
-   argmin).
+   argmin).  Delay: both objectives again at J = 300 with a checkpoint
+   delay of 2 steps (two solves each), at the same contract.
 4. Main path: ``scenarios.sweep_checkpointing`` over the 8-scenario default
    grid x 3 policies x seeds (0, 1), J = 300 at dt = 1/60 (T = 1441 ages),
    4000 trials, max_restarts 64, with the kernel launch counter reset just
@@ -96,6 +97,35 @@ Phases, each of which exits nonzero on failure:
    on 2,000-job bags, cluster 32, pools of 8,000) timed once after a
    warm-up on a tenth of each bag; one sweep under torch.profiler for
    the device's busy share and top device events.
+11. Market path: ``benchmarks/market_bench.py``'s full mode on the card -
+   the 8-scenario default grid under ``MarketModel.for_scenarios`` (a
+   crunch on us-central1-a over hours 8-16, horizon 48 h, price dt 0.1 h,
+   seed 0), regimes calm and crunch, ``solve_market_tables`` in both
+   objectives (J = 300, dt = 1/60), then ``sweep_market(tables=...)`` with
+   policies fixed / cheapest / migrate x seeds (0, 1) x 400 trials, with
+   the DP launch counter reset just before and read just after (4
+   launches).  Checks: each of the 4 solves validates and matches the
+   plain version on the same grids (the phase 3 contract); all 96 rows
+   finite with no unfinished trials; the kernel-path dollars bit-identical
+   to ``cost_path="reference"``; card and CPU rows bit-identical on one
+   pool and table set; market_bench's two acceptance flags (``cheapest``
+   pays less than ``fixed`` on every crunch-scheduled leaf, and on every
+   crunch leaf the dollar DP's ``evaluate_policy_dollars`` cost is at most
+   the makespan DP's x (1 + 1e-6)).
+12. Market timing: medians of 5 after a warm-up, each ending in a
+   synchronize, of ``solve_market_tables`` per objective, ``sweep_market``
+   with ``tables=``, ``evaluate_policy_dollars`` and
+   ``accumulate_price_cost``; one ``sweep_market`` under torch.profiler for
+   the device's busy share and top device events.
+13. Fit (Fig. 1): ``fitting.fit_samples`` for the four families on the
+   card over 1,516 lifetimes (the Fig. 1 trace size) drawn by
+   ``constrained_for("n1-highcpu-16").icdf`` from ``default_rng(42)``
+   uniforms, each timed after a warm-up.  Checks: Eq. 1 converged with the
+   lowest LSE of the four; constrained, exponential and Weibull equal the
+   port's CPU fits (same iterations, theta rtol 1e-7, LSE rtol 1e-9);
+   Gompertz-Makeham converged at its exponential limit (LSE within rtol
+   1e-8 of the exponential fit's), as ``tests/test_torch_fitting.py``
+   states.  Prints each family's LSE, KS, iterations and ms.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -115,6 +145,7 @@ J_SMALL, DT_SMALL = 60, 1.0 / 12.0
 J_MAIN, DT_MAIN = 300, 1.0 / 60.0
 MAIN_REPEATS = 16              # kernel solves held to the plain J_MAIN one
 N_TRIALS, SEEDS, MAX_RESTARTS, DELTA, N_SWEEPS = 4000, (0, 1), 64, 1, 3
+DELTA_ALT = 2                  # a second checkpoint delay, phase 3
 RO_HOURS = 0.3                 # restart overhead for the dollar check
 OPS_PER_CANDIDATE = 20         # f32 operations per (candidate, lane), a
                                # division counted as one
@@ -156,6 +187,19 @@ SVC_PRICE_SEED, SVC_PRICE_CELLS, SVC_PRICE_DT = 0, 96, 0.25
 # the scale point (service_bench.py's at its quick size): 50 memoryless
 # lanes on 2 bags of 2,000 jobs, pools of 8,000 lifetimes
 SCALE_VM, SCALE_LANES, SCALE_JOBS, SCALE_BAGS = "n1-highcpu-32", 50, 2000, 2
+
+# the market cell: benchmarks/market_bench.py's full mode - the default
+# grid under MarketModel.for_scenarios (a crunch on us-central1-a over
+# hours 8-16, horizon 48 h, price dt 0.1 h, seed 0), regimes calm and
+# crunch, policies fixed / cheapest / migrate, seeds (0, 1), J = 300 at
+# dt = 1/60, 400 trials
+MKT_REGIMES = ("calm", "crunch")
+MKT_POLICIES = ("fixed", "cheapest", "migrate")
+MKT_TRIALS = 400
+MKT_OBJECTIVES = (("makespan", 0.999), ("dollars", 0.995))
+# the fit: the Fig. 1 trace size (benchmarks/fig1_fit.py)
+FIT_N, FIT_SEED, FIT_VM = 1516, 42, "n1-highcpu-16"
+FIT_FAMILIES = ("constrained", "exponential", "weibull", "gompertz_makeham")
 
 
 class SmokeFailure(RuntimeError):
@@ -278,7 +322,8 @@ def profile_window(torch, fn, top=8):
                   key=lambda r: -r[1])
     return wall_ms, (busy_us / 1e3 if spans else None), rows[:top]
 
-def dp_inputs(torch, grids, dists, job_steps, grid_dt, price=None):
+def dp_inputs(torch, grids, dists, job_steps, grid_dt, price=None,
+              delta=DELTA):
     """Keyword arguments of one ``dp_recurrence`` call, as
     ``solve_batch`` builds them."""
     dev = torch.device("cuda")
@@ -287,7 +332,7 @@ def dp_inputs(torch, grids, dists, job_steps, grid_dt, price=None):
     Fc = torch.stack([g[0] for g in fh])
     Hc = torch.stack([g[1] for g in fh])
     kw = dict(Fc=Fc, Hc=Hc, grid_dt=grid_dt, restart_overhead=0.0,
-              j_max=job_steps, t_max=t_max, delta_steps=DELTA,
+              j_max=job_steps, t_max=t_max, delta_steps=delta,
               n_sweeps=N_SWEEPS)
     if price is None:
         kw["col0"] = grids.seed_column(Fc, job_steps, grid_dt)
@@ -296,7 +341,7 @@ def dp_inputs(torch, grids, dists, job_steps, grid_dt, price=None):
     cum = np.concatenate([np.zeros((len(prices), 1)),
                           np.cumsum(prices * pdt, axis=1)], axis=1)
     Pc, P0 = grids.price_cum_grids(prices, cum, pdt, grid_dt, t_max,
-                                   job_steps + DELTA)
+                                   job_steps + delta)
     kw["Pc"] = torch.as_tensor(Pc, device=dev)
     kw["Ro"] = torch.as_tensor((RO_HOURS * P0).astype(np.float32),
                                device=dev)
@@ -1044,6 +1089,246 @@ def service_timing(torch, kw, res, smi):
     return timing
 
 
+# ---------------------------------------------------------------------------
+# the market slice and the fit
+# ---------------------------------------------------------------------------
+
+def same_rows(a, b):
+    """Whether two row lists agree in every field (NaN equal to NaN)."""
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(
+            x[k] == y[k] or (x[k] != x[k] and y[k] != y[k]) for k in x)
+        for x, y in zip(a, b))
+
+
+def shared_pools(engine):
+    """Within the block, the market sweep's lifetime pools are drawn on the
+    CPU and copied to the requested device, so a card run and a CPU run
+    execute the same pool."""
+    from unittest import mock
+    draw = engine.draw_lifetime_pool_batch
+
+    def on_cpu(*a, device="cuda", **kw):
+        first, pool = draw(*a, device="cpu", **kw)
+        return first.to(device), pool.to(device)
+    return mock.patch.object(engine, "draw_lifetime_pool_batch", on_cpu)
+
+
+def market_path(torch, dp_recurrence):
+    """Phase 11: the market path at market_bench's full size; returns its
+    inputs for phase 12 and the DP launches of its run."""
+    from repro_torch.core import engine, market, scenarios
+    from repro_torch.core.policies import checkpointing
+    grid = scenarios.default_grid()
+    mkt = market.MarketModel.for_scenarios(grid)
+    dp_kw = dict(job_steps=J_MAIN, grid_dt=DT_MAIN, delta_steps=DELTA,
+                 n_sweeps=N_SWEEPS)
+    sweep_kw = dict(dp_kw, market=mkt, regimes=MKT_REGIMES,
+                    policies=MKT_POLICIES, seeds=SEEDS, n_trials=MKT_TRIALS,
+                    max_restarts=MAX_RESTARTS)
+    dp_recurrence.launches = 0
+    t0 = time.perf_counter()
+    tabs = {obj: scenarios.solve_market_tables(
+        grid, mkt, regimes=MKT_REGIMES, dp_objective=obj, device="cuda",
+        **dp_kw) for obj, _ in MKT_OBJECTIVES}
+    rows = scenarios.sweep_market(grid, tables=tabs["makespan"],
+                                  device="cuda", **sweep_kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dp_recurrence.launches
+    print(f"[market] solve_market_tables x 2 objectives + sweep_market: "
+          f"{len(rows)} rows in {first_s:.2f} s; dp_recurrence launches "
+          f"{launches}")
+    check(launches == 2 * len(MKT_REGIMES),
+          f"the market path launched dp_recurrence {launches} times, "
+          f"expected {2 * len(MKT_REGIMES)}")
+    check(len(rows) == len(grid) * len(MKT_REGIMES) * len(MKT_POLICIES)
+          * len(SEEDS), f"{len(rows)} market rows")
+    grid0 = mkt.grid()
+    for obj, k_min in MKT_OBJECTIVES:
+        for regime in MKT_REGIMES:
+            t = tabs[obj][regime].validate()
+            check(t.backend == "cuda", f"market tables used {t.backend}")
+            t_launch = mkt.launch_time(regime)
+            plain = checkpointing.solve_batch(
+                mkt.crunch_dists(grid, t_launch), J_MAIN, grid_dt=DT_MAIN,
+                delta_steps=DELTA, n_sweeps=N_SWEEPS, backend="reference",
+                objective=obj,
+                price=grid0.shift(t_launch) if obj == "dollars" else None,
+                device="cuda")
+            dv = float((t.V - plain.V).abs().max())
+            k_agree = float((t.K == plain.K).double().mean())
+            check(bool(torch.allclose(t.V, plain.V, rtol=1e-5, atol=1e-5)),
+                  f"market {obj}/{regime}: V differs from the plain "
+                  f"version's beyond rtol = atol = 1e-5")
+            check(k_agree >= k_min, f"market {obj}/{regime}: K agreement "
+                                    f"{k_agree} < {k_min}")
+            same = bool(torch.equal(t.V, plain.V)) \
+                and bool(torch.equal(t.K, plain.K))
+            print(f"[market] {obj} tables, {regime} (launch hour "
+                  f"{t_launch}): kernel vs plain max|dV| {dv:.3e}, K "
+                  f"agreement {k_agree:.6f} (need {k_min}); bit-identical "
+                  f"{same}")
+    for r in rows:
+        check(np.isfinite(r["expected_dollars"])
+              and r["unfinished_frac"] == 0.0,
+              f"market row {r['scenario']}/{r['regime']}/{r['policy']}/"
+              f"{r['seed']}: {r}")
+    ref = scenarios.sweep_market(grid, tables=tabs["makespan"],
+                                 cost_path="reference", device="cuda",
+                                 **sweep_kw)
+    check(same_rows(rows, ref), "market: kernel-path dollars differ from "
+                                "the serial reference")
+    print(f"[market] kernel-path rows bit-identical to cost_path="
+          f"'reference' on the card: {len(rows)} of {len(ref)}")
+    with shared_pools(engine):
+        card = scenarios.sweep_market(grid, tables=tabs["makespan"],
+                                      device="cuda", **sweep_kw)
+        cpu = scenarios.sweep_market(grid, tables=tabs["makespan"],
+                                     device="cpu", **sweep_kw)
+    check(same_rows(card, cpu), "market: card and CPU rows differ on one "
+                                "pool and table set")
+    print(f"[market] card vs CPU on one pool and table set: {len(card)} "
+          f"rows, every field bit-identical")
+    # market_bench's acceptance flags
+    fixed = {(r["scenario"], r["seed"]): r["expected_dollars"] for r in rows
+             if r["regime"] == "crunch" and r["policy"] == "fixed"
+             and r["crunch"]}
+    cheap = {(r["scenario"], r["seed"]): r["expected_dollars"] for r in rows
+             if r["regime"] == "crunch" and r["policy"] == "cheapest"
+             and r["crunch"]}
+    beats = bool(fixed) and all(cheap[k] < fixed[k] for k in fixed)
+    t_launch = mkt.launch_time("crunch")
+    dists = mkt.crunch_dists(grid, t_launch)
+    g = grid0.shift(t_launch)
+    ev_kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA, n_sweeps=N_SWEEPS,
+                 device="cuda")
+    ev_mk = checkpointing.evaluate_policy_dollars(
+        tabs["makespan"]["crunch"].K, dists, g, **ev_kw)
+    ev_d = checkpointing.evaluate_policy_dollars(
+        tabs["dollars"]["crunch"].K, dists, g, **ev_kw)
+    ratios = []
+    for s, p in enumerate(mkt.processes):
+        if p.crunched:
+            mk_d, dl_d = float(ev_mk[s, J_MAIN, 0]), float(ev_d[s, J_MAIN, 0])
+            ratios.append((grid[s].name, dl_d / mk_d,
+                           dl_d <= mk_d * (1.0 + 1e-6)))
+    ddp = bool(ratios) and all(ok for _, _, ok in ratios)
+    for pol in MKT_POLICIES:
+        for regime in MKT_REGIMES:
+            vals = [r["expected_dollars"] for r in rows
+                    if r["policy"] == pol and r["regime"] == regime]
+            print(f"[market] {regime:6s} {pol:8s}: mean expected dollars "
+                  f"{sum(vals) / len(vals):.6f} over {len(vals)} rows")
+    print(f"[market] cheapest < fixed on all {len(fixed)} crunch leaves x "
+          f"seeds: {beats}; dollar-DP / makespan-DP dollars on crunch "
+          f"leaves {[(n, round(x, 6)) for n, x, _ in ratios]}, all <= "
+          f"1 + 1e-6: {ddp}")
+    check(beats, "market: cheapest does not beat fixed on every crunch leaf")
+    check(ddp, "market: the dollar DP pays more than the makespan DP")
+    return dict(grid=grid, mkt=mkt, tabs=tabs, sweep_kw=sweep_kw,
+                dp_kw=dp_kw, rows=rows, dists=dists, price=g,
+                ev_kw=ev_kw), launches
+
+
+def market_timing(torch, inp, smi):
+    """Phase 12: the market path's solve, sweep, evaluation and gather
+    times, and one sweep under torch.profiler."""
+    from repro_torch.core import engine, scenarios
+    from repro_torch.core.policies import checkpointing
+    grid, mkt, tabs = inp["grid"], inp["mkt"], inp["tabs"]
+    timing = {}
+    for obj, _ in MKT_OBJECTIVES:
+        timing[f"solve_market_tables_{obj}_ms"] = host_ms(
+            torch, lambda: scenarios.solve_market_tables(
+                grid, mkt, regimes=MKT_REGIMES, dp_objective=obj,
+                device="cuda", **inp["dp_kw"]))
+    sweep = lambda: scenarios.sweep_market(  # noqa: E731
+        grid, tables=tabs["makespan"], device="cuda", **inp["sweep_kw"])
+    timing["sweep_market_ms"] = host_ms(torch, sweep)
+    timing["evaluate_policy_dollars_ms"] = host_ms(
+        torch, lambda: checkpointing.evaluate_policy_dollars(
+            tabs["dollars"]["crunch"].K, inp["dists"], inp["price"],
+            **inp["ev_kw"]))
+    first, pool = engine.draw_lifetime_pool_batch(
+        inp["dists"], MKT_TRIALS, max_restarts=MAX_RESTARTS, seed=0,
+        device="cuda")
+    mk = engine.simulate_makespan_batch(
+        tabs["makespan"]["crunch"].K, J_MAIN, first=first, pool=pool,
+        grid_dt=DT_MAIN, delta_steps=DELTA, max_restarts=MAX_RESTARTS,
+        device="cuda")
+    timing["accumulate_price_cost_ms"] = host_ms(
+        torch, lambda: engine.accumulate_price_cost(inp["price"], mk,
+                                                    device="cuda"))
+    wall, dev_ms, prof_rows = profile_window(torch, sweep, top=10)
+    busy = None if dev_ms is None else dev_ms / wall
+    print(f"[profile] sweep_market: wall {wall:.2f} ms, device busy "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms (share "
+          f"{busy if busy is None else round(busy, 4)}); device events:")
+    for name, ms, calls in prof_rows:
+        print(f"[profile] market   {ms:9.3f} ms  {calls:6d} x  {name}")
+    timing.update(sweep_market_profiled_wall_ms=wall,
+                  sweep_market_device_ms=dev_ms,
+                  sweep_market_device_busy_share=busy, card=smi)
+    print("[timing] market " + json.dumps(timing))
+    return timing
+
+
+def fit_phase(torch, smi):
+    """Phase 13: the Eq. 1 fit (Fig. 1) on the card against the port on
+    the CPU, at the tolerances of tests/test_torch_fitting.py."""
+    from repro_torch.core import distributions as TD
+    from repro_torch.core import fitting
+    u = np.random.default_rng(FIT_SEED).uniform(size=FIT_N)
+    trace = TD.constrained_for(FIT_VM).icdf(torch.from_numpy(u)).numpy()
+    card, ms = {}, {}
+    for fam in FIT_FAMILIES:
+        fitting.fit_samples(fam, trace, device="cuda")   # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card[fam] = fitting.fit_samples(fam, trace, device="cuda")
+        torch.cuda.synchronize()
+        ms[fam] = (time.perf_counter() - t0) * 1e3
+    cpu = fitting.fit_all(trace, families=FIT_FAMILIES, device="cpu")
+    lses = {f: float(r.lse) for f, r in card.items()}
+    out = {}
+    for fam in FIT_FAMILIES:
+        r = card[fam]
+        ks = float(fitting.ks_statistic(r.dist, trace))
+        out[fam] = dict(lse=lses[fam], ks=ks, iterations=r.iterations,
+                        converged=r.converged, ms=ms[fam])
+        print(f"[fit] {fam:16s}: LSE {lses[fam]:.10g}, KS {ks:.6f}, "
+              f"{r.iterations} iterations (best start), converged "
+              f"{r.converged}, {ms[fam]:.1f} ms on the card; CPU LSE "
+              f"{float(cpu[fam].lse):.10g}, {cpu[fam].iterations} "
+              f"iterations")
+    check(card["constrained"].converged, "fit: Eq. 1 did not converge")
+    check(min(lses, key=lses.get) == "constrained",
+          f"fit: Eq. 1 has not the lowest LSE: {lses}")
+    for fam in ("constrained", "exponential", "weibull"):
+        a, b = card[fam], cpu[fam]
+        check(a.converged and b.converged
+              and a.iterations == b.iterations
+              and np.allclose(a.theta.cpu().numpy(), b.theta.numpy(),
+                              rtol=1e-7, atol=0)
+              and np.isclose(float(a.lse), float(b.lse), rtol=1e-9, atol=0),
+              f"fit {fam}: card {a.theta.tolist()} / {float(a.lse)} / "
+              f"{a.iterations} vs CPU {b.theta.tolist()} / {float(b.lse)} / "
+              f"{b.iterations}")
+    gm = card["gompertz_makeham"]
+    check(gm.converged and np.isclose(lses["gompertz_makeham"],
+                                      lses["exponential"], rtol=1e-8,
+                                      atol=0),
+          f"fit gompertz_makeham: converged {gm.converged}, LSE "
+          f"{lses['gompertz_makeham']} vs the exponential limit "
+          f"{lses['exponential']}")
+    print("[fit] card vs CPU: constrained, exponential, weibull equal "
+          "within theta rtol 1e-7 / LSE rtol 1e-9 with the same iterations;"
+          " gompertz_makeham converged at the exponential limit")
+    print("[timing] fit " + json.dumps(dict(out, card=smi)))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1107,6 +1392,12 @@ def main() -> int:
     compare(torch, dp_recurrence, dp_recurrence_plain,
             dp_inputs(torch, grids, dists, J_MAIN, DT_MAIN, price), 0.995,
             f"dollars J={J_MAIN}", repeats=4)
+    for objective, p, k_min in (("makespan", None, 0.999),
+                                ("dollars", price, 0.995)):
+        compare(torch, dp_recurrence, dp_recurrence_plain,
+                dp_inputs(torch, grids, dists, J_MAIN, DT_MAIN, p,
+                          delta=DELTA_ALT), k_min,
+                f"{objective} J={J_MAIN} delta={DELTA_ALT}", repeats=2)
     exact_ties(torch, grids, dp_recurrence, dp_recurrence_plain)
 
     # -- 4. the main path ---------------------------------------------------
@@ -1250,6 +1541,17 @@ def main() -> int:
 
     # -- 10. service timing -------------------------------------------------
     service_timing(torch, svc_kw, svc_res, smi)
+
+    # -- 11. the market path ------------------------------------------------
+    mkt_inputs, mkt_launches = market_path(torch, dp_recurrence)
+    kernel["launches_by_path"] = {"checkpointing": launches,
+                                  "market": mkt_launches}
+
+    # -- 12. market timing --------------------------------------------------
+    market_timing(torch, mkt_inputs, smi)
+
+    # -- 13. the Eq. 1 fit --------------------------------------------------
+    fit_phase(torch, smi)
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),

@@ -1,18 +1,19 @@
 """Lifetime models for temporally constrained preemptions (Eqs. 1-5), in
 PyTorch.
 
-Port of ``repro.core.distributions`` for the families the checkpointing
-pipeline uses: the paper's 4-parameter constrained model
+Port of ``repro.core.distributions``: the paper's 4-parameter
+constrained model
 
     F(t) = A * (1 - exp(-t/tau1) + exp((t-b)/tau2)),   0 < t < L (~24 h)
 
 (:class:`Constrained`), its launch-phase-modulated form
-(:class:`DiurnalConstrained`) and the :class:`Exponential` and
-:class:`Weibull` baselines.  Each is a frozen dataclass whose fields are
-Python floats or float64 tensors; every method computes in float64 on the
-device of its tensor fields (or of the query, when that is a tensor).
-:func:`stack` gives the fields a leading ``(S,)`` scenario axis.  Time unit
-is HOURS.
+(:class:`DiurnalConstrained`), the :class:`Exponential`,
+:class:`Weibull`, :class:`GompertzMakeham` and :class:`Uniform` baselines
+and the interpolated CDF of a trace (:class:`Empirical`).  Each is a
+frozen dataclass whose fields are Python floats or float64 tensors;
+every method computes in float64 on the device of its tensor fields (or
+of the query, when that is a tensor).  :func:`stack` gives the fields a
+leading ``(S,)`` scenario axis.  Time unit is HOURS.
 """
 from __future__ import annotations
 
@@ -94,13 +95,44 @@ class _DistBase:
             return t.to(_F64)
         return torch.as_tensor(t, dtype=_F64, device=self.device)
 
+    def survival(self, t):
+        return 1.0 - self.cdf(t)
+
+    def hazard(self, t):
+        return self.pdf(t) / torch.clamp(self.survival(t), min=1e-12)
+
+    def fail_between(self, a, b):
+        """P(a < preemption <= b) = F(b) - F(a)."""
+        return self.cdf(b) - self.cdf(a)
+
     def partial_expectation(self, a, b):
         """integral_a^b x f(x) dx (numeric fallback)."""
         return _gauss_legendre(lambda x: x * self.pdf(x), self._f64(a),
                                self._f64(b))
 
+    def expected_lifetime(self):
+        """E[L] = integral_0^L t f(t) dt (Eq. 3); the survivor mass at the
+        deadline is excluded, as in the paper's definition."""
+        return self.partial_expectation(0.0, self.L)
+
+    def mean_lifetime_capped(self):
+        """E[min(T, L)], the mass preempted AT the deadline included."""
+        return (self.expected_lifetime()
+                + self.survival(self.L) * self._f64(self.L))
+
     def icdf(self, u):
         return _bisect_icdf(self.cdf, self._f64(u), 0.0, self._f64(self.L))
+
+    def sample(self, generator: torch.Generator, shape=()):
+        """Lifetimes in [0, L] from float64 uniforms of ``generator`` (on
+        the distribution's device): ``u >= F(L)`` means the VM survives to
+        the hard cap and is preempted at exactly L."""
+        u = torch.rand(tuple(shape), generator=generator, dtype=_F64,
+                       device=self.device)
+        L = self._f64(self.L)
+        fl = self.cdf(L)
+        t = self.icdf(torch.minimum(u, fl * (1.0 - 1e-6)))
+        return torch.where(u >= fl, L.to(t.dtype), t)
 
 
 @_dist
@@ -282,6 +314,103 @@ class Weibull(_DistBase):
         return self.lam * self.k * torch.pow(self._z(t), self.k - 1.0)
 
 
+@_dist
+class GompertzMakeham(_DistBase):
+    """F(t) = 1 - exp(-lam*t - (alpha/beta)(e^{beta t} - 1)); hazard
+    lam + alpha e^{beta t}."""
+
+    lam: float | torch.Tensor = 0.08
+    alpha: float | torch.Tensor = 1e-4
+    beta: float | torch.Tensor = 0.35
+    L: float | torch.Tensor = DEADLINE_HOURS
+
+    def cdf(self, t):
+        t = self._f64(t)
+        return 1.0 - _exp(-self.lam * t - (self.alpha / self.beta)
+                          * (_exp(self.beta * t) - 1.0))
+
+    def pdf(self, t):
+        return self.hazard(t) * self.survival(t)
+
+    def hazard(self, t):
+        return self.lam + self.alpha * _exp(self.beta * self._f64(t))
+
+
+@_dist
+class Uniform(_DistBase):
+    """Uniformly distributed constrained preemptions: F(t) = t / L (the
+    paper's Fig. 5 comparison)."""
+
+    L: float | torch.Tensor = DEADLINE_HOURS
+
+    def cdf(self, t):
+        return torch.clamp(self._f64(t) / self.L, 0.0, 1.0)
+
+    def pdf(self, t):
+        t = self._f64(t)
+        inside = (t >= 0) & (t <= self.L)
+        return torch.where(inside, 1.0 / self._f64(self.L), 0.0)
+
+    def partial_expectation(self, a, b):
+        L = self._f64(self.L)
+        a_ = _clip(self._f64(a), 0.0, L)
+        b_ = _clip(self._f64(b), 0.0, L)
+        return (b_ * b_ - a_ * a_) / (2.0 * L)
+
+
+def _interp(x, xp, fp, left, right):
+    """``jnp.interp`` for increasing ``xp``: linear between the knots,
+    ``left`` below ``xp[0]`` and ``right`` above ``xp[-1]``; a knot
+    interval of width at most ``spacing(eps)`` (a duplicated knot) takes
+    the value at its left end."""
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
+    f0 = fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float64).eps))
+    f = torch.where(dx0, f0, f0 + ((x - xp[i - 1])
+                                   / torch.where(dx0, 1.0, dx))
+                    * (fp[i] - f0))
+    f = torch.where(x < xp[0], torch.as_tensor(left, dtype=f.dtype,
+                                               device=f.device), f)
+    return torch.where(x > xp[-1], torch.as_tensor(right, dtype=f.dtype,
+                                                   device=f.device), f)
+
+
+@_dist
+class Empirical(_DistBase):
+    """Interpolated CDF of an observed lifetime trace: ``knots`` the sorted
+    lifetimes ``(n,)``, ``values`` the ECDF there (midpoint convention
+    ``(i + 0.5) / n``)."""
+
+    knots: torch.Tensor
+    values: torch.Tensor
+    L: float | torch.Tensor = DEADLINE_HOURS
+
+    @staticmethod
+    def from_samples(samples, L=DEADLINE_HOURS) -> "Empirical":
+        """From a trace: an array (on the CPU) or a tensor (on its
+        device)."""
+        s = torch.as_tensor(samples, dtype=_F64).reshape(-1)
+        s = torch.sort(s).values
+        n = s.shape[0]
+        v = (torch.arange(n, dtype=_F64, device=s.device) + 0.5) / n
+        return Empirical(knots=s, values=v,
+                         L=torch.as_tensor(L, dtype=_F64, device=s.device))
+
+    def cdf(self, t):
+        return _interp(self._f64(t), self.knots, self.values, 0.0, 1.0)
+
+    def pdf(self, t):
+        """Finite-difference density (diagnostics only)."""
+        eps = 0.05
+        t = self._f64(t)
+        return (self.cdf(t + eps) - self.cdf(t - eps)) / (2 * eps)
+
+    def quantile(self, q):
+        return _interp(self._f64(q), self.values, self.knots, 0.0,
+                      self._f64(self.L))
+
+
 VM_TYPE_PARAMS = {
     # name                tau1   tau2    b     A     (Obs. 4: larger => faster)
     "n1-highcpu-2": dict(tau1=1.5, tau2=0.85, b=24.0, A=0.40),
@@ -301,12 +430,16 @@ def registry():
         "diurnal_constrained": DiurnalConstrained,
         "exponential": Exponential,
         "weibull": Weibull,
+        "gompertz_makeham": GompertzMakeham,
+        "uniform": Uniform,
+        "empirical": Empirical,
     }
 
 
 def stack(dists, device=None):
     """One distribution of the shared family whose fields are float64
-    ``(S,)`` tensors, on ``device`` (default: the first entry's device)."""
+    ``(S,)`` tensors, on ``device`` (default: the first entry's device, or
+    the CPU for a dataclass without one, such as ``market.PriceProcess``)."""
     dists = list(dists)
     if not dists:
         raise ValueError("stack() needs at least one distribution")
@@ -314,7 +447,7 @@ def stack(dists, device=None):
     if any(type(d) is not cls for d in dists[1:]):
         raise TypeError("stack() requires one distribution family, got "
                         f"{sorted({type(d).__name__ for d in dists})}")
-    dev = dists[0].device if device is None else device
+    dev = getattr(dists[0], "device", None) if device is None else device
     return cls(**{
         f.name: torch.stack([torch.as_tensor(getattr(d, f.name), dtype=_F64,
                                              device=dev) for d in dists])

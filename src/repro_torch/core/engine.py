@@ -13,6 +13,8 @@ bit.  Pools are drawn from ``numpy.random.default_rng`` uniforms in
 ``repro``'s order and inverted on the device.  :class:`ReuseTables` holds
 the batch service's reuse decisions for every scenario, evaluated in one
 call on the device, with a host copy for the serial event loop.
+:func:`accumulate_price_cost` bills makespans against a market price grid,
+to the bit of the serial ``market.integrate_cost_ref``.
 """
 from __future__ import annotations
 
@@ -180,6 +182,49 @@ def draw_lifetime_pool_batch(dists, n_trials: int, *, max_restarts: int = 64,
         f_lo = torch.zeros((S, 1), dtype=_F64, device=dev)
     first = capped_icdf_draw(d_b, f_lo + u_first * (1.0 - f_lo), fl, L)
     return first, pool.reshape(S, n_trials, max_restarts + 2)
+
+
+# ---------------------------------------------------------------------------
+# market dollars: the price-grid gather
+# ---------------------------------------------------------------------------
+
+def accumulate_price_cost(grid, makespans, price_index=None,
+                          device="cuda") -> np.ndarray:
+    """Dollars per trial for ``(B, n_trials)`` makespans (hours) billed
+    against a ``market.PriceGrid``: lane ``b`` integrates price row
+    ``price_index[b]`` (identity when omitted) over ``[0, m)``.  NaN
+    makespans (unfinished trials) stay NaN.
+
+    The cell index ``k = floor(m / dt)`` (tail-clamped) and the gathers
+    ``cum[s, k]``, ``prices[s, k]`` run on ``device`` in float64, ``dt`` a
+    device tensor (CUDA divides by a host scalar as a product with its
+    reciprocal, which moves ``k`` at cell edges).  The partial-cell
+    arithmetic ``cum + prices * (m - k*dt)`` runs in host numpy float64,
+    the rounding sequence of ``market.integrate_cost_ref``, so every
+    element equals it to the bit."""
+    dev = resolve_device(device)
+    m = np.atleast_2d(np.asarray(makespans, np.float64))
+    B = m.shape[0]
+    if price_index is None:
+        price_index = np.arange(B, dtype=np.int64)
+    sidx = np.broadcast_to(np.asarray(price_index, np.int64), (B,))
+    if sidx.size and (sidx.min() < 0 or sidx.max() >= len(grid.prices)):
+        raise ValueError("price_index out of range for the price grid")
+    prices = torch.as_tensor(np.asarray(grid.prices, np.float64), device=dev)
+    cum = torch.as_tensor(np.asarray(grid.cum, np.float64), device=dev)
+    m_d = torch.as_tensor(m, device=dev)
+    dt = torch.tensor(float(grid.dt), dtype=_F64, device=dev)
+    m0 = torch.where(torch.isnan(m_d), 0.0, m_d)
+    k = torch.clamp(torch.floor(m0 / dt).to(torch.int64), 0,
+                    prices.shape[1] - 1)
+    s = torch.as_tensor(np.array(sidx), device=dev)[:, None]
+    base = cum[s, k].cpu().numpy()
+    pk = prices[s, k].cpu().numpy()
+    kf = k.cpu().numpy().astype(np.float64)
+    frac = m - kf * np.float64(grid.dt)
+    out = base + pk * frac
+    out[np.isnan(m)] = np.nan
+    return out if np.ndim(makespans) > 1 else out[0]
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,7 @@ import torch
 
 from ...device import resolve_device
 from . import solver_backends
-from .solver_backends.grids import cdf_grids, price_cum_grids
+from .solver_backends.grids import _EPS, cdf_grids, price_cum_grids
 
 OBJECTIVES = ("makespan", "dollars")
 
@@ -224,3 +224,85 @@ def extract_schedule(tables: DPTables, job_steps: int,
         t = min(t + i + (tables.delta_steps if j > 0 else 0),
                 tables.horizon_idx)
     return out
+
+
+def evaluate_policy_dollars(K, dists: Sequence, price, *, grid_dt: float,
+                            delta_steps: int = 1, n_sweeps: int = 3,
+                            restart_overhead: float = 0.0,
+                            device="cuda") -> torch.Tensor:
+    """Expected dollars-to-completion of executing FIXED policy tables
+    ``K`` under the dollar objective's own model: the dollar recurrence in
+    float64 with the min over candidate intervals replaced by K's choice
+    (clipped to ``[1, j]``), through the same restart-cost fixed point and
+    row order as the solver, batched over the S scenarios.
+
+    Because the solver minimizes over every candidate the evaluator
+    follows, ``solve_batch(objective="dollars").V <= evaluate(K_any)`` per
+    sweep (up to the solver's float32 argmin slack), which lets a
+    makespan-optimal K and a dollar-optimal K be compared in the same
+    currency without Monte-Carlo noise.
+
+    ``K``: ``(S, j_max+1, t_max+1)`` int tables (tensor or array);
+    ``dists``: the S lifetime models; ``price``: a price grid (one row
+    broadcasts).  Runs on ``device`` and returns float64
+    ``(S, j_max+1, t_max+1)`` dollar tables there; entry ``[s, J, 0]`` is
+    the expected cost of a fresh J-step job.
+    """
+    dev = resolve_device(device)
+    if not isinstance(K, torch.Tensor):
+        K = torch.from_numpy(np.array(K))
+    K = K.to(device=dev, dtype=torch.int64)
+    S, J1, T = K.shape
+    j_max, t_max = J1 - 1, T - 1
+    prices = np.asarray(price.prices, np.float64)
+    cum = np.asarray(price.cum, np.float64)
+    if prices.shape[0] == 1 and S > 1:
+        prices = np.broadcast_to(prices, (S, prices.shape[1]))
+        cum = np.broadcast_to(cum, (S, cum.shape[1]))
+    # the cumulative-dollar grid on the age axis, in host float64 as the
+    # solver's grids are built
+    pdt = float(price.dt)
+    TX = t_max + 1 + j_max + int(delta_steps)
+    tau = np.arange(TX, dtype=np.float64) * grid_dt
+    kc = np.clip(np.floor(tau / pdt).astype(np.int64), 0,
+                 prices.shape[1] - 1)
+    Pc = torch.as_tensor(
+        cum[:, kc] + prices[:, kc] * (tau[None, :] - kc[None, :] * pdt),
+        device=dev)
+    P0 = torch.as_tensor(np.ascontiguousarray(prices[:, 0]), device=dev)
+    tk = torch.arange(T, dtype=torch.float64, device=dev) * grid_dt
+    F = torch.stack([torch.clamp(d.cdf(tk), 0.0, 1.0) for d in dists])
+    atom = torch.clamp(1.0 - F[:, -1], min=0.0)
+    F[:, -1] = 1.0
+    H = torch.stack([d.partial_expectation(torch.zeros_like(tk), tk)
+                     for d in dists]).clone()
+    H[:, -1] += atom * torch.tensor([float(d.L) for d in dists],
+                                    dtype=torch.float64, device=dev)
+    dead = (1.0 - F) < 1e-6
+    t = torch.arange(T, device=dev)[None, :].expand(S, T)
+    t_hours = t.to(torch.float64) * grid_dt
+    rows = torch.arange(S, device=dev)[:, None]
+    V = Pc[:, :J1, None].expand(S, J1, T).clone()
+    for _ in range(n_sweeps):
+        R = float(restart_overhead) * P0[:, None] + V[:, :, 0].clone()
+        for j in range(1, J1):
+            i = torch.clamp(K[:, j], 1, j)
+            w = torch.where(i == j, i, i + int(delta_steps))
+            endx = t + w
+            end = torch.clamp(endx, max=t_max)
+            Ft, Fe = torch.gather(F, 1, t), torch.gather(F, 1, end)
+            p_fail = torch.clamp(
+                (Fe - Ft) / torch.clamp(1.0 - Ft, min=_EPS), 0.0, 1.0)
+            dF = torch.clamp(Fe - Ft, min=_EPS)
+            w_hours = w.to(torch.float64) * grid_dt
+            e_lost = (torch.gather(H, 1, end) - torch.gather(H, 1, t)) / dF \
+                - t_hours
+            e_lost = torch.minimum(torch.clamp(e_lost, min=0.0), w_hours)
+            dP = torch.gather(Pc, 1, endx) - torch.gather(Pc, 1, t)
+            pb = dP / w_hours
+            v_succ = dP + V[rows, j - i, end]
+            Rj = R[:, j:j + 1]
+            v_fail = e_lost * pb + Rj
+            vj = (1.0 - p_fail) * v_succ + p_fail * v_fail
+            V[:, j] = torch.where(dead, Rj, vj)
+    return V

@@ -27,16 +27,27 @@ def _f64(dist, x):
 
 
 def linspace(start: float, stop: float, num: int) -> np.ndarray:
-    """``num`` float64 points from ``start`` to ``stop`` inclusive:
-    ``start + (stop - start) / (num - 1) * i``, the last point ``stop``
-    exactly.  On the reuse tables' age grid (0 to 24 h, 1441 points) this
-    gives every age ``jnp.linspace`` gives under x64; on other grids XLA's
-    compiled ``jnp.linspace`` rounds some points an ulp or two apart."""
+    """``num`` float64 points from ``start`` to ``stop`` inclusive, the last
+    point ``stop`` exactly, in the expression tree of compiled
+    ``jnp.linspace`` under x64: ``start * (1 - i * r) + i * (stop * r)``
+    with ``r = 1 / (num - 1)`` rounded once (XLA turns the division of the
+    iota by ``num - 1`` into a product with ``r`` and reassociates
+    ``(i * r) * stop`` into ``i * (stop * r)``).
+
+    At ``start = 0`` (every caller here) the first product is an exact
+    zero, so each point is ``i * (stop * r)`` whether or not the backend
+    fuses the sum into an FMA, and the grid equals ``jnp.linspace``'s to
+    the bit.  At ``start != 0`` XLA:CPU fuses ``1 - i*r`` and the sum into
+    FMAs in its vector loop but not in its unrolled or remainder code, so
+    which of them rounds once depends on ``num``; numpy rounds every
+    operation, which puts a point at most one ulp from XLA's."""
     div = num - 1
     if div < 1:
         return np.full((max(num, 0),), float(start))
-    delta = (np.float64(stop) - np.float64(start)) / np.float64(div)
-    out = np.float64(start) + delta * np.arange(div, dtype=np.float64)
+    r = np.float64(1.0) / np.float64(div)
+    i = np.arange(div, dtype=np.float64)
+    out = (np.float64(start) * (1.0 - i * r)
+           + i * (np.float64(stop) * r))
     return np.concatenate([out, [np.float64(stop)]])
 
 

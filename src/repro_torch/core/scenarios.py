@@ -9,6 +9,10 @@ executor run on the device, and returns one row per cell in ``repro``'s
 row order and schema.  :func:`sweep_service` expands
 (scenario x policy x cluster_size x seed) over the batch service, serially
 on the host or as one batched loop on the device.
+:func:`sweep_market` bills the checkpointing executor's makespans in
+dollars against the market's price grids, over calm and crunch regimes
+and three cost policies; :func:`solve_market_tables` solves its DP tables
+once for reuse.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ from .policies import checkpointing as ckpt
 from .policies import young_daly as yd
 
 __all__ = ["Scenario", "register", "get", "names", "default_grid",
-           "sweep_checkpointing", "sweep_service", "PHASE_CLOCKS",
-           "ZONE_PARAMS"]
+           "sweep_checkpointing", "sweep_service", "solve_market_tables",
+           "sweep_market", "PHASE_CLOCKS", "ZONE_PARAMS"]
 
 # Wall-clock launch hour per diurnal phase label.
 PHASE_CLOCKS: Dict[str, float] = {"day": 20.0, "night": 8.0, "shoulder": 14.0}
@@ -343,4 +347,251 @@ def sweep_service(scenarios: Iterable, *,
             reuse_table=tables.view(si) if tables is not None else None,
             device=dev, **kw)
         rows.extend(_row(sc, cell) for cell in grid)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# spot-market sweep (dollar-denominated policy evaluation)
+# ---------------------------------------------------------------------------
+
+_MARKET_POLICIES = ("fixed", "cheapest", "migrate")
+
+
+def _no_refine(solver_refine: bool) -> None:
+    if solver_refine:
+        raise NotImplementedError(
+            "solver_refine=True: coarse-to-fine refinement is not ported "
+            "yet (ROADMAP.md, queue 1, item 2: solver_backends/refine.py)")
+
+
+def solve_market_tables(scenarios: Iterable, market, *,
+                        regimes: Sequence[str] = ("calm", "crunch"),
+                        job_steps: int = 300, grid_dt: float = 1.0 / 60.0,
+                        delta_steps: int = 1, n_sweeps: int = 3,
+                        restart_overhead: float = 0.0,
+                        solver_backend: str = "auto",
+                        solver_refine: bool = False,
+                        dp_objective: str = "makespan",
+                        device="cuda") -> dict:
+    """One ``BatchDPTables`` per market regime, for :func:`sweep_market`'s
+    ``tables=``.
+
+    Each regime is solved against the crunch-coupled Eq. 1 models at its
+    launch time (``market.crunch_dists``): calm tables equal the plain
+    per-scenario tables, crunch tables price in the boosted early hazard.
+    ``dp_objective="dollars"`` solves each regime under the dollar
+    objective against the market's price grid seen from that regime's
+    launch time (``market.grid().shift(launch_time)``)."""
+    _no_refine(solver_refine)
+    dev = resolve_device(device)
+    scs = _resolve(scenarios)
+    grid0 = market.grid() if dp_objective == "dollars" else None
+    out = {}
+    for regime in regimes:
+        t0 = market.launch_time(regime)
+        dist_list = market.crunch_dists(scs, t0)
+        price = None if grid0 is None else grid0.shift(t0)
+        out[regime] = ckpt.solve_batch(
+            dist_list, job_steps, grid_dt=grid_dt, delta_steps=delta_steps,
+            n_sweeps=n_sweeps, restart_overhead=restart_overhead,
+            backend=solver_backend, objective=dp_objective, price=price,
+            device=dev)
+    return out
+
+
+def _market_row(sc, regime, policy, seed, chosen, launch_price, dollars,
+                mk_row, fin_row, *, n_trials, job_steps, crunch):
+    ok = np.asarray(fin_row, bool)
+    d_ok = np.asarray(dollars)[ok]
+    m_ok = np.asarray(mk_row)[ok]
+    return dict(
+        sc.coords(), regime=regime, policy=policy, seed=seed,
+        chosen=chosen, launch_price=float(launch_price),
+        n_trials=n_trials, job_steps=job_steps, crunch=bool(crunch),
+        expected_dollars=float(d_ok.mean()) if d_ok.size else float("nan"),
+        dollars_p50=float(np.median(d_ok)) if d_ok.size else float("nan"),
+        makespan_mean=float(m_ok.mean()) if m_ok.size else float("nan"),
+        unfinished_frac=float(1.0 - ok.mean()))
+
+
+def _check_market_tables(tables, regime, S, job_steps, grid_dt, delta_steps,
+                         restart_overhead, dp_objective):
+    if regime not in tables:
+        raise ValueError(f"tables= has no entry for regime {regime!r}")
+    batch = tables[regime]
+    if len(batch) != S or batch.K.shape[1] != job_steps + 1:
+        raise ValueError(
+            f"tables[{regime!r}] has {len(batch)} scenarios x j_max "
+            f"{batch.K.shape[1] - 1}; this sweep needs {S} x {job_steps}")
+    if batch.delta_steps != delta_steps \
+            or abs(batch.grid_dt - grid_dt) > 1e-12 \
+            or batch.restart_overhead != restart_overhead:
+        raise ValueError("tables was solved for a different "
+                         "(grid_dt, delta_steps, restart_overhead) workload")
+    if batch.objective != dp_objective:
+        raise ValueError(
+            f"tables[{regime!r}] was solved with objective="
+            f"{batch.objective!r}; this sweep requested "
+            f"dp_objective={dp_objective!r}")
+    return batch
+
+
+def sweep_market(scenarios: Iterable, *, market=None,
+                 regimes: Sequence[str] = ("calm", "crunch"),
+                 policies: Sequence[str] = _MARKET_POLICIES,
+                 seeds: Sequence[int] = (0,), job_steps: int = 300,
+                 n_trials: int = 400, grid_dt: float = 1.0 / 60.0,
+                 delta_steps: int = 1, max_restarts: int = 64,
+                 restart_overhead: float = 0.0, n_sweeps: int = 3,
+                 tables: Optional[dict] = None,
+                 feasible_slack: float = 1.25,
+                 migrate_threshold: float = 1.15,
+                 migrate_overhead_hours: float = 2.0 / 60.0,
+                 cost_path: str = "kernel",
+                 solver_backend: str = "auto",
+                 solver_refine: bool = False,
+                 dp_objective: str = "makespan",
+                 device="cuda") -> list:
+    """Expand (scenario x regime x cost policy x seed) in dollars.
+
+    Each regime launches the whole scenario grid at
+    ``market.launch_time(regime)`` against the crunch-coupled Eq. 1 models,
+    runs one executor pass over all scenarios per (regime, seed) on
+    ``device``, and bills every trial's makespan against the launch-shifted
+    ``(S, T)`` price grid through ``engine.accumulate_price_cost``.  The
+    checkpoint schedule is always the DP table; the cost policies choose
+    where a job runs and is billed:
+
+    * ``"fixed"`` - the scenario's own leaf;
+    * ``"cheapest"`` - at launch, the same-vm_type leaf with the lowest
+      launch price among those whose DP expected cost is within
+      ``feasible_slack`` of the own leaf's (the own leaf when none is
+      cheaper);
+    * ``"migrate"`` - start on the own leaf; from the first grid cell where
+      the own price exceeds ``migrate_threshold`` times the substitute's,
+      bill the substitute's prices, and charge trials still running at the
+      crossing ``migrate_overhead_hours`` at the substitute's price there.
+
+    ``tables=`` takes :func:`solve_market_tables`' per-regime tables and
+    skips every solve (they must match the workload and ``dp_objective``).
+    ``cost_path="reference"`` bills through the serial
+    ``market.integrate_cost_ref`` loop instead of the gather.  Under
+    ``dp_objective="dollars"`` the tables minimize expected dollars and the
+    ``feasible_slack`` gate compares expected dollars.  Returns flat rows
+    in ``repro``'s order and schema.
+    """
+    from . import market as market_mod
+    _no_refine(solver_refine)
+    dev = resolve_device(device)
+    scs = _resolve(scenarios)
+    S = len(scs)
+    if market is None:
+        market = market_mod.MarketModel.for_scenarios(scs)
+    if len(market) != S:
+        raise ValueError(f"market has {len(market)} leaves for {S} scenarios")
+    if cost_path not in ("kernel", "reference"):
+        raise ValueError(f"cost_path must be 'kernel' or 'reference', "
+                         f"got {cost_path!r}")
+    unknown = set(policies) - set(_MARKET_POLICIES)
+    if unknown:
+        raise ValueError(f"unknown market policies {sorted(unknown)}; "
+                         f"choose from {_MARKET_POLICIES}")
+
+    def bill(grid, mk, price_index):
+        if cost_path == "kernel":
+            return engine.accumulate_price_cost(grid, mk, price_index,
+                                                device=dev)
+        return np.array([
+            [market_mod.integrate_cost_ref(grid.prices[price_index[s]],
+                                           grid.cum[price_index[s]],
+                                           grid.dt, m)
+             for m in mk[s]] for s in range(S)])
+
+    grid0 = market.grid()
+    T = grid0.prices.shape[1]
+    rows = []
+    for regime in regimes:
+        t0 = market.launch_time(regime)
+        dist_list = market.crunch_dists(scs, t0)
+        g = grid0.shift(t0)
+        if tables is not None:
+            batch = _check_market_tables(tables, regime, S, job_steps,
+                                         grid_dt, delta_steps,
+                                         restart_overhead, dp_objective)
+        else:
+            batch = ckpt.solve_batch(
+                dist_list, job_steps, grid_dt=grid_dt,
+                delta_steps=delta_steps, n_sweeps=n_sweeps,
+                restart_overhead=restart_overhead, backend=solver_backend,
+                objective=dp_objective,
+                price=g if dp_objective == "dollars" else None, device=dev)
+        # per-leaf expected cost of a fresh job (hours, or dollars under the
+        # dollar objective): the substitution policies' feasibility signal
+        exp_mk = batch.V[:, job_steps, 0].double().cpu().numpy()
+        launch_p = g.prices[:, 0]
+        crunch_on = [regime == "crunch" and p.crunched
+                     for p in market.processes]
+        # cheapest-feasible substitute per leaf, resolved at launch (ties
+        # keep the own leaf: substitution must strictly win)
+        target = np.arange(S)
+        for s in range(S):
+            cands = [j for j in range(S)
+                     if scs[j].vm_type == scs[s].vm_type
+                     and exp_mk[j] <= feasible_slack * exp_mk[s]
+                     and launch_p[j] < launch_p[s]]
+            if cands:
+                target[s] = min(cands, key=lambda j: launch_p[j])
+        # migrate-on-price-signal: the own prefix, then the substitute's
+        # suffix from the first cell where the own price exceeds threshold x
+        # the substitute's
+        composed = g.prices.copy()
+        kc = np.full(S, T, np.int64)
+        for s in range(S):
+            j = target[s]
+            if j == s:
+                continue
+            hit = np.flatnonzero(g.prices[s]
+                                 > migrate_threshold * g.prices[j])
+            if hit.size:
+                kc[s] = hit[0]
+                composed[s, hit[0]:] = g.prices[j, hit[0]:]
+        g_migrate = market_mod.PriceGrid.from_prices(composed, g.dt)
+
+        ptab = engine.dp_policy_table(batch).to(dev)
+        idx = np.arange(S, dtype=np.int64)
+        for seed in seeds:
+            first, pool = engine.draw_lifetime_pool_batch(
+                dist_list, n_trials, max_restarts=max_restarts, seed=seed,
+                device=dev)
+            mk, fin = engine.simulate_makespan_batch(
+                ptab, job_steps, first=first, pool=pool, grid_dt=grid_dt,
+                delta_steps=delta_steps, restart_overhead=restart_overhead,
+                max_restarts=max_restarts, unfinished="nan",
+                return_finished=True, device=dev)
+            for policy in policies:
+                if policy == "fixed":
+                    chosen, m_bill, f_bill = idx, mk, fin
+                    dollars = bill(g, m_bill, idx)
+                elif policy == "cheapest":
+                    chosen = target
+                    m_bill, f_bill = mk[chosen], fin[chosen]
+                    dollars = bill(g, m_bill, chosen)
+                else:   # migrate
+                    chosen, m_bill, f_bill = idx, mk, fin
+                    dollars = bill(g_migrate, m_bill, idx)
+                    cross_t = kc[:, None] * g.dt
+                    sur = np.where(
+                        m_bill > cross_t,
+                        migrate_overhead_hours
+                        * g.prices[target, np.minimum(kc, T - 1)][:, None],
+                        0.0)
+                    dollars = dollars + sur
+                for s in range(S):
+                    rows.append(_market_row(
+                        scs[s], regime, policy, seed,
+                        scs[int(chosen[s]) if policy != "migrate"
+                            else int(target[s])].name,
+                        launch_p[s], dollars[s], m_bill[s], f_bill[s],
+                        n_trials=n_trials, job_steps=job_steps,
+                        crunch=crunch_on[s]))
     return rows

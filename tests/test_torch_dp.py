@@ -84,16 +84,59 @@ def test_plain_recurrence_on_shared_grids(dists, backend, job, grid_dt):
     _assert_tables_close(V, K, ref, 0.999)
 
 
+# Checkpoint delays.  At delta 0 a checkpoint is free, and in the flat
+# middle of Eq. 1 (F ~ A to float32 precision, ages ~9-17 h) every split
+# of the remaining work costs the same: the candidates tie to within
+# float32 rounding and the argmin falls to the order of the float32 sums.
+# The port's plain recurrence sums in the Pallas kernel's order, repro's
+# backends in theirs, so ~1-1.5 % of the constrained scenario's argmins
+# differ (K agreement 0.988-0.994 over the three scenarios here).  The
+# delta-0 case therefore holds every differing K to a tie: re-evaluated in
+# float64 on repro's V, the two choices cost the same within 1e-6
+# relative (float32 rounding is 6e-8), and the agreement is >= 0.98.
+DELTAS = [(1, 0.999), (2, 0.999), (5, 0.999), (0, 0.98)]
+
+
+def _makespan_cost(F, H, V, R, j, t, i, grid_dt, t_max):
+    """Float64 cost of candidate interval ``i`` at (j, t) at delta 0."""
+    end = np.minimum(t + i, t_max)
+    Ft, Fe = F[t], F[end]
+    p_fail = np.clip((Fe - Ft) / np.maximum(1.0 - Ft, G._EPS), 0.0, 1.0)
+    dF = np.maximum(Fe - Ft, G._EPS)
+    e_lost = np.clip((H[end] - H[t]) / dF - t * grid_dt, 0.0, i * grid_dt)
+    return (1.0 - p_fail) * (i * grid_dt + V[j - i, end]) \
+        + p_fail * (e_lost + R[j])
+
+
+def _flips_are_ties(dists, K, ref, grid_dt):
+    with jax.enable_x64(True):
+        grids = [G.cdf_grids(d, grid_dt) for d in dists]
+    for s, (Fc, Hc, t_max) in enumerate(grids):
+        F, H = np.asarray(Fc, np.float64), np.asarray(Hc, np.float64)
+        V = np.asarray(ref.V[s], np.float64)
+        Kr = np.asarray(ref.K[s])
+        R = RO + V[:, 0]
+        j, t = np.nonzero(K[s] != Kr)
+        a = _makespan_cost(F, H, V, R, j, t, K[s][j, t], grid_dt, t_max)
+        b = _makespan_cost(F, H, V, R, j, t, Kr[j, t], grid_dt, t_max)
+        assert np.all(np.abs(a - b) <= 1e-6 * b), s
+
+
+@pytest.mark.parametrize("delta,k_min", DELTAS)
 @pytest.mark.parametrize("job,grid_dt", SIZES)
 @pytest.mark.parametrize("backend", ["reference", "xla"])
-def test_solve_batch_matches_jax(dists, tdists, backend, job, grid_dt):
+def test_solve_batch_matches_jax(dists, tdists, backend, job, grid_dt, delta,
+                                 k_min):
     with jax.enable_x64(True):
         ref = C.solve_batch(dists, job, grid_dt=grid_dt, restart_overhead=RO,
-                            backend=backend)
+                            delta_steps=delta, backend=backend)
     got = TC.solve_batch(tdists, job, grid_dt=grid_dt, restart_overhead=RO,
-                         device="cpu")
+                         delta_steps=delta, device="cpu")
     assert got.backend == "reference" and got.horizon_idx == ref.horizon_idx
-    _assert_tables_close(got.V, got.K, ref, 0.999)
+    assert got.delta_steps == delta
+    _assert_tables_close(got.V, got.K, ref, k_min)
+    if delta == 0:
+        _flips_are_ties(dists, _np(got.K), ref, grid_dt)
     got.validate()
 
 

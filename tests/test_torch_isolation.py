@@ -9,6 +9,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -60,13 +61,16 @@ def test_default_device_raises_without_a_gpu():
         pytest.skip("a GPU is present: the default device is usable here")
     from repro_torch import configs, resolve_device
     from repro_torch.core import distributions as TD
-    from repro_torch.core import engine, scenarios, service, service_kernel
+    from repro_torch.core import (engine, fitting, market, scenarios, service,
+                                  service_kernel)
     from repro_torch.core.policies import checkpointing
     from repro_torch.fault import PreemptionSource
     from repro_torch.launch import serve
     from repro_torch.models import transformer, weights
     d = TD.constrained_for()
     cfg = configs.smoke("recurrentgemma-2b")
+    mkt = market.MarketModel.for_scenarios(scenarios.default_grid()[:1])
+    grid = mkt.grid()
     calls = [
         lambda: resolve_device(),
         lambda: checkpointing.solve_batch([d], 4, grid_dt=1.0),
@@ -97,6 +101,16 @@ def test_default_device_raises_without_a_gpu():
                                         n_jobs=2),
         lambda: scenarios.sweep_service(scenarios.default_grid()[:1],
                                         n_jobs=2, mode="batched"),
+        lambda: engine.accumulate_price_cost(grid, [[1.0]]),
+        lambda: checkpointing.evaluate_policy_dollars(
+            np.ones((1, 5, 3), np.int32), [d], grid, grid_dt=12.0),
+        lambda: scenarios.solve_market_tables(
+            scenarios.default_grid()[:1], mkt, job_steps=4),
+        lambda: scenarios.sweep_market(scenarios.default_grid()[:1],
+                                       job_steps=4, n_trials=2),
+        lambda: fitting.fit("exponential", [1.0, 2.0], [0.2, 0.4]),
+        lambda: fitting.fit_samples("exponential", [1.0, 2.0]),
+        lambda: fitting.fit_all([1.0, 2.0]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

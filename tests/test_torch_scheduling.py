@@ -6,8 +6,9 @@ seed.
 Tolerances: rtol 1e-12 on every float64 function (only the last bits of
 exp differ), with atol 1e-15 where a difference of two close CDF values or
 a clip to 0 can leave a result near zero; the reuse decision and the
-reuse tables' age grid are compared exactly, other age grids within two
-ulps.
+reuse tables (at L = 24, 20 and 30 h) are compared exactly, and
+``linspace`` is bit-identical to ``jnp.linspace`` from start 0 and within
+one ulp from other starts.
 """
 import dataclasses
 
@@ -18,8 +19,10 @@ import pytest
 import torch
 
 from repro.core import distributions as D
+from repro.core import engine as E
 from repro.core.policies import scheduling as S
 from repro_torch.core import carry
+from repro_torch.core import engine as TE
 from repro_torch.core.policies import scheduling as TS
 
 CASES = [
@@ -112,14 +115,64 @@ def test_mean_failure_prob_over_starts_matches_jax(case, policy):
 
 
 def test_linspace_matches_the_reuse_age_grid():
-    """The reuse tables' age grid is ``jnp.linspace(0, 24, 1441)`` to the
-    bit; other grids (the Fig. 6b start ages) within two ulps."""
+    """The reuse tables' age grid ``jnp.linspace(0, 24, 1441)`` and the
+    Fig. 6b start ages, both to the bit."""
     with jax.enable_x64(True):
         ages = np.asarray(jnp.linspace(0.0, 24.0, 1441))
         starts = np.asarray(jnp.linspace(0.0, 24.0 * (1.0 - 1e-3), 241))
     assert np.array_equal(TS.linspace(0.0, 24.0, 1441), ages)
-    got = TS.linspace(0.0, 24.0 * (1.0 - 1e-3), 241)
-    assert np.all(np.abs(got - starts) <= 2 * np.spacing(np.abs(starts)))
+    assert np.array_equal(TS.linspace(0.0, 24.0 * (1.0 - 1e-3), 241), starts)
+
+
+LINSPACE_ZERO = [(0.0, 24.0, 1441), (0.0, 20.0, 1441), (0.0, 30.0, 1441),
+                 (0.0, 23.976, 241), (0.0, 1.0, 7), (0.0, 6.5, 2),
+                 (0.0, -3.7, 333), (0.0, 48.0, 4801)]
+LINSPACE_SHIFTED = [(1.5, 7.3, 101), (-2.0, 3.0, 17), (0.25, 24.0, 1000),
+                    (3.0, 1.0, 50), (-7.1, 0.0, 64), (1e-3, 24.0, 2000)]
+
+
+def _jnp_linspaces(start, stop, num):
+    """``jnp.linspace`` under x64, eager and inside ``jax.jit`` (start and
+    stop traced)."""
+    with jax.enable_x64(True):
+        eager = np.asarray(jnp.linspace(start, stop, num))
+        jitted = np.asarray(jax.jit(jnp.linspace, static_argnums=2)(
+            start, stop, num))
+    return eager, jitted
+
+
+@pytest.mark.parametrize("start,stop,num", LINSPACE_ZERO)
+def test_linspace_from_zero_is_bit_identical(start, stop, num):
+    got = TS.linspace(start, stop, num)
+    for want in _jnp_linspaces(start, stop, num):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("start,stop,num", LINSPACE_SHIFTED)
+def test_linspace_from_nonzero_start_within_one_ulp(start, stop, num):
+    """At start != 0 XLA:CPU fuses some of the tree's operations into FMAs
+    (which ones depends on num), numpy none: one ulp apart at most, the
+    endpoints exact."""
+    got = TS.linspace(start, stop, num)
+    for want in _jnp_linspaces(start, stop, num):
+        assert got[0] == want[0] and got[-1] == want[-1]
+        assert np.all(np.abs(got - want) <= np.spacing(np.abs(want)))
+
+
+@pytest.mark.parametrize("L", [20.0, 30.0])
+def test_reuse_tables_at_other_deadlines_match_jax(L):
+    """``ReuseTables`` on the ``linspace(0, L, 1441)`` age grid, where the
+    old ``(stop / div) * i`` grid put 1,132 (L = 20 h) and 1,430 (L = 30 h)
+    of the 1,441 ages an ulp away from ``jnp.linspace``'s."""
+    ds = [D.Constrained(tau1=1.0, tau2=0.8, b=L, A=0.475, L=L),
+          D.Constrained(tau1=0.6, tau2=0.75, b=L, A=0.5, L=L)]
+    vals = np.linspace(0.25, 0.6 * L, 23)
+    with jax.enable_x64(True):
+        want = E.ReuseTables(ds, vals)
+    got = TE.ReuseTables([_port("constrained", d) for d in ds], vals,
+                         device="cpu")
+    assert got.L == want.L == L
+    assert np.array_equal(got.tables, want.tables)
 
 
 def test_policy_halves_failure_probability():
