@@ -41,8 +41,10 @@ Phases, each of which exits nonzero on failure:
 6. Serving kernels vs plain: flash_attention, decode_attention and
    linear_recurrence against their plain versions on the same CUDA inputs,
    at the serving path's shapes in bf16 and at further cases (float32, a
-   ragged length, llama3.2-1b's full-causal GQA shape, Sq < Sk, mixed
-   decode lengths, the recurrence with and without h0, at S = 1, at S not a
+   ragged length, llama3.2-1b's full-causal GQA shape and its bf16 decode
+   at D = 64, yi-34b's full-causal bf16 shape at D = 128 (H = 56, KV = 8,
+   S = 2048), Sq < Sk, mixed decode lengths, the recurrence with and
+   without h0, at S = 1, at S not a
    multiple of its time chunk (2047, 37), at B = 1, at W not a multiple of
    its channel slice (1000), and at a W whose rows TMA cannot address
    (1001)); each recurrence case checks which kernel its launch chose (the
@@ -89,8 +91,11 @@ Phases, each of which exits nonzero on failure:
    (every field); the serial heap loop bit-identical, per job, for model
    and memoryless x 10 seeds in two scenarios; a 6 h deadline rejects
    jobs in some lanes and stays bit-identical card vs CPU; a seeded priced
-   run's dollars bit-identical card vs CPU; every row's cost reduction
-   finite and above 1 (printed per policy).
+   run's dollars bit-identical card vs CPU; the reuse-denial lanes of
+   tests/test_torch_service.py (bags of 30 jobs of ~6 h on 4-6 VMs, model
+   and memoryless, with and without deflation) bit-identical card vs CPU,
+   each model lane's makespan differing from its memoryless twin's; every
+   row's cost reduction finite and above 1 (printed per policy).
 10. Service timing: the sweep's ms (median of 5 after a warm-up, final
    synchronize), the loop's ms, steps, ms per step and events/s, the
    reuse table's and the pools' ms; the scale point (50 memoryless lanes
@@ -126,6 +131,33 @@ Phases, each of which exits nonzero on failure:
    Gompertz-Makeham converged at its exponential limit (LSE within rtol
    1e-8 of the exponential fit's), as ``tests/test_torch_fitting.py``
    states.  Prints each family's LSE, KS, iterations and ms.
+14. Refinement: ``solve_batch(refine=True)`` at the main path's size (the
+   8-scenario default grid, J = 300, dt = 1/60, T = 1441, 3 sweeps), cold
+   and warm, in both objectives (dollars on phase 11's crunch regime and
+   price grid), with the DP launch counter reset before each solve.
+   Checks: the column-0 check verified, V and K bit-identical to the
+   plain kernel solve, 2 launches a refined solve (the coarse hint and the
+   final sweep); ``sweep_checkpointing(solver_refine=True)`` rows equal
+   the plain sweep's; ``solve_market_tables(solver_refine=True)`` equal to
+   phase 11's tables in both objectives; with every candidate cap forced
+   to 1 the check fails, the plain tables are served and the solve makes
+   3 launches.  Times the refined and the plain solve.
+15. The closed loop: ``runtime.FleetRuntime`` with the 8 default-grid
+   scenarios beside the live model (DP (9, 301, 1441)), J = 300 at
+   dt = 1/60, 3 cold and 2 warm sweeps, window 256, refit every 64, 256
+   regret trials, an n1-highcpu-2 stream in blocks of 256 under
+   ``FaultInjector(default_schedule(1200), seed=0)``, 1,200 observations
+   (benchmarks/runtime_bench.py's cadence-64 row at the sweep's
+   resolution), recorded, then replayed with ``solver_refine=True`` and on
+   the CPU.  Checks: retries {fit: 2, solve: 1}; a change-point swap
+   answers the drift (adaptation lag set); every regret finite; one DP
+   launch per swap plus the cold solve; the refined run's events and swaps
+   equal and each swap's tables bit-identical; the CPU replay's events and
+   swaps equal and its live tables at the DP contract (V rtol = atol =
+   1e-5, K agreement >= 0.999); one warm sweep from a 3-sweep V equals the
+   4-sweep cold solve bit for bit.  Times the cold, warm and refined
+   solves, ``run()`` per observation, ``measure_regret``, a refit, and one
+   swap under torch.profiler for the device's busy share.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -184,6 +216,9 @@ SVC_SWEEP = dict(policies=SVC_POLICIES, cluster_sizes=(SVC_CLUSTER,),
 SVC_SERIAL_SCENARIOS = (0, 5)  # scenarios replayed by the serial heap loop
 SVC_DEADLINE = 6.0             # hours, the admission-control run
 SVC_PRICE_SEED, SVC_PRICE_CELLS, SVC_PRICE_DT = 0, 96, 0.25
+# reuse denials (tests/test_torch_service.py): bags of 30 jobs of ~6 h,
+# pools of 400 lifetimes
+DENY_JOBS, DENY_HOURS, DENY_POOL = 30, 6.0, 400
 # the scale point (service_bench.py's at its quick size): 50 memoryless
 # lanes on 2 bags of 2,000 jobs, pools of 8,000 lifetimes
 SCALE_VM, SCALE_LANES, SCALE_JOBS, SCALE_BAGS = "n1-highcpu-32", 50, 2000, 2
@@ -200,6 +235,16 @@ MKT_OBJECTIVES = (("makespan", 0.999), ("dollars", 0.995))
 # the fit: the Fig. 1 trace size (benchmarks/fig1_fit.py)
 FIT_N, FIT_SEED, FIT_VM = 1516, 42, "n1-highcpu-16"
 FIT_FAMILIES = ("constrained", "exponential", "weibull", "gompertz_makeham")
+# the closed loop: benchmarks/runtime_bench.py's cadence-64 row at the
+# sweep's resolution, the 8 default-grid scenarios beside the live model
+# (DP (9, 301, 1441)); the solve budget is wide so that the CPU replay of
+# the recorded stream never times out a solve the card run kept
+RT_OBS = 1200
+RT_CONFIG = dict(job_steps=J_MAIN, grid_dt=DT_MAIN, delta_steps=DELTA,
+                 n_sweeps=N_SWEEPS, warm_sweeps=2, window=256,
+                 refit_every=64, min_samples=64, regret_trials=256,
+                 stream_vm_types=("n1-highcpu-2",), stream_block=256,
+                 solve_budget_s=3600.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -460,6 +505,7 @@ def serving_kernels_vs_plain(torch):
         ("serving prefill", BATCH, PROMPT, PROMPT, 10, 1, 256, 2048, bf16),
         ("ragged S=2049", 2, 2049, 2049, 10, 1, 256, 2048, bf16),
         ("llama3.2-1b full causal", 1, 2048, 2048, 32, 8, 64, 0, bf16),
+        ("yi-34b full causal", 1, 2048, 2048, 56, 8, 128, 0, bf16),
         ("float32 window 128", 2, 512, 512, 4, 2, 128, 128, f32),
         ("Sq < Sk float32", 2, 100, 300, 4, 1, 256, 0, f32),
     ]
@@ -478,6 +524,8 @@ def serving_kernels_vs_plain(torch):
         ("mixed lengths", BATCH, S, 10, 1, 256,
          [1, 7, 64, 65, 1000, 2047, 2048, 130], bf16),
         ("float32 GQA", 3, 300, 32, 8, 64, [300, 1, 150], f32),
+        ("llama3.2-1b decode", BATCH, S, 32, 8, 64,
+         [2048, 1, 513, 2047, 64, 1000, 2048, 7], bf16),
     ]
     for label, B, S_, H, KV, D, lens, dt in decode_cases:
         q = normal(B, H, D, dtype=dt)
@@ -1003,6 +1051,41 @@ def service_path(torch, counters):
     print(f"[service] priced: dollars {float(res_p.dollars.min()):.4f}-"
           f"{float(res_p.dollars.max()):.4f} per lane")
 
+    # reuse denials: jobs of ~6 h on 4-6 VMs, where the model policy denies
+    # spares whose window would run too late, so its lanes leave their
+    # memoryless twins (tests/test_torch_service.py's denial lanes)
+    from repro_torch.core import distributions as TD
+    from repro_torch.core import engine
+    dists = [TD.diurnal_for("n1-highcpu-32", 20.0),
+             TD.diurnal_for("n1-highcpu-16", 8.0),
+             TD.diurnal_for("n1-highcpu-16", 14.0, A=0.44)]
+    tabs = engine.ReuseTables(dists, service.grid_reuse_values(
+        dists[0], seeds=(0, 1), n_jobs=DENY_JOBS, job_hours=DENY_HOURS,
+        jitter=SVC_JITTER), device="cuda")
+    kw_n = dict(
+        lengths=np.stack([service._bag_lengths(DENY_JOBS, DENY_HOURS,
+                                               SVC_JITTER, s)
+                          for s in (0, 1)]),
+        pools=SK.draw_service_pool_batch(dists, [0, 1, 2], size=DENY_POOL,
+                                         device="cuda"),
+        bag_index=[0, 1, 0, 1] * 4, pool_index=[0, 1, 2, 0] * 4,
+        policy=["model"] * 8 + ["memoryless"] * 8,
+        cluster_size=[6, 4] * 8, tables=tabs.tensor,
+        T_values=tabs.T_values, reuse_L=tabs.L,
+        table_index=[0, 1, 2, 0] * 4,
+        deflate=([False] * 4 + [True] * 4) * 2)
+    res_n = SK.simulate_service_batch(**kw_n, on_exhausted="flag",
+                                      device="cuda")
+    lanes_finished(res_n, "reuse denials")
+    differ = bool(np.all(res_n.makespan[:8] != res_n.makespan[8:]))
+    print(f"[service] reuse denials ({DENY_JOBS} jobs of ~{DENY_HOURS} h on "
+          f"4-6 VMs): model lanes' makespans differ from their memoryless "
+          f"twins' in all 8 pairs: {differ}")
+    check(differ, "reuse denials: a model lane equals its memoryless twin")
+    same_lanes(torch, "reuse denials, card vs CPU", res_n,
+               SK.simulate_service_batch(**on_cpu(kw_n), on_exhausted="flag",
+                                         device="cpu"))
+
     for r in rows:
         check(np.isfinite(r["cost_reduction"]) and r["cost_reduction"] > 1.0,
               f"row {r['scenario']}/{r['policy']}/{r['seed']}: cost "
@@ -1329,6 +1412,345 @@ def fit_phase(torch, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# refinement and the closed loop
+# ---------------------------------------------------------------------------
+
+def same_tables(torch, a, b):
+    return bool(torch.equal(a.V, b.V)) and bool(torch.equal(a.K, b.K))
+
+
+class LaunchRecorder:
+    """Stands in for the CUDA backend's ``dp_recurrence``: calls the kernel
+    (which counts the launch) and records each call's inputs and tables."""
+
+    def __init__(self, kernel):
+        self.kernel, self.calls = kernel, []
+
+    def __call__(self, *args, **kw):
+        out = self.kernel(*args, **kw)
+        self.calls.append((args, kw, out))
+        return out
+
+
+def recorded_launches(dp_recurrence):
+    """Records every ``dp_recurrence`` launch the CUDA DP backend makes
+    inside the ``with`` block."""
+    from unittest import mock
+
+    from repro_torch.core.policies.solver_backends import cuda
+    return mock.patch.object(cuda, "dp_recurrence",
+                             LaunchRecorder(dp_recurrence))
+
+
+def hold_to_plain(torch, dp_recurrence_plain, rec, label):
+    """Holds every launch ``rec`` recorded to ``dp_recurrence_plain`` on the
+    same inputs, on the card: V and K must be bit-identical."""
+    for args, kw, (Vk, Kk) in rec.calls:
+        Vp, Kp = dp_recurrence_plain(*args, **kw)
+        same = bool(torch.equal(Vk, Vp)) and bool(torch.equal(Kk, Kp))
+        print(f"[kernel] {label}: launch of shape {tuple(Vk.shape)}, "
+              f"{kw['n_sweeps']} sweep(s), V and K bit-identical to "
+              f"dp_recurrence_plain on its inputs {same}")
+        check(same, f"{label}: a {tuple(Vk.shape)} launch differs from "
+                    f"dp_recurrence_plain on the same inputs")
+    return len(rec.calls)
+
+
+def refine_phase(torch, dp_recurrence, dp_recurrence_plain, mkt_inputs,
+                 sweep_kw, smi):
+    """Phase 14: ``solve_batch(refine=True)`` at the main path's full size
+    against the plain kernel solve (each of its launches, the coarse hint
+    and the final sweep from the pre-swept column 0, also against
+    ``dp_recurrence_plain`` on the same inputs), the refined sweep and
+    market tables with their launch counts, a forced fallback, and the
+    refined and plain solve times.  Returns the DP launches of the refined
+    calls."""
+    from unittest import mock
+
+    from repro_torch.core import scenarios
+    from repro_torch.core.policies import checkpointing
+    from repro_torch.core.policies.solver_backends import refine as R
+    grid = scenarios.default_grid()
+    kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA, n_sweeps=N_SWEEPS,
+              device="cuda")
+    cases = (("makespan", [sc.dist() for sc in grid], {}),
+             ("dollars", mkt_inputs["dists"],
+              dict(objective="dollars", price=mkt_inputs["price"])))
+    launches, timing = 0, {}
+    for obj, dists, extra in cases:
+        plain = checkpointing.solve_batch(dists, J_MAIN, **kw, **extra)
+        for start, v_init in (("cold", None), ("warm", plain.V)):
+            want = plain if v_init is None else checkpointing.solve_batch(
+                dists, J_MAIN, v_init=v_init, **kw, **extra)
+            dp_recurrence.launches = 0
+            with recorded_launches(dp_recurrence) as rec:
+                got = checkpointing.solve_batch(dists, J_MAIN, v_init=v_init,
+                                                refine=True, **kw, **extra)
+            n = dp_recurrence.launches
+            launches += n
+            info = got.refine_info
+            same = same_tables(torch, got, want)
+            print(f"[refine] {obj} {start}: backend {got.backend}, caps "
+                  f"{info.get('caps')}, verified_col0 "
+                  f"{info.get('verified_col0')}, fallback "
+                  f"{info.get('fallback')}; V, K bit-identical to the plain "
+                  f"kernel solve {same}; dp_recurrence launches {n}")
+            check(info["applied"] and info["verified_col0"]
+                  and not info["fallback"],
+                  f"refine {obj} {start}: {info}")
+            check(same, f"refine {obj} {start}: tables differ from the plain "
+                        f"kernel solve")
+            check(n == 2, f"refine {obj} {start}: {n} launches, expected 2")
+            check(rec.calls[-1][1]["n_sweeps"] == 1,
+                  f"refine {obj} {start}: the final sweep is not one sweep")
+            hold_to_plain(torch, dp_recurrence_plain, rec,
+                          f"refine {obj} {start}")
+        timing[f"refined_solve_{obj}_ms"] = host_ms(
+            torch, lambda: checkpointing.solve_batch(dists, J_MAIN,
+                                                     refine=True, **kw,
+                                                     **extra))
+        timing[f"plain_solve_{obj}_ms"] = host_ms(
+            torch, lambda: checkpointing.solve_batch(dists, J_MAIN, **kw,
+                                                     **extra))
+
+    dp_recurrence.launches = 0
+    rows_r = scenarios.sweep_checkpointing(grid, solver_refine=True,
+                                           **sweep_kw)
+    n = dp_recurrence.launches
+    launches += n
+    rows_p = scenarios.sweep_checkpointing(grid, **sweep_kw)
+    check(same_rows(rows_r, rows_p), "refine: sweep rows differ from the "
+                                     "plain sweep's")
+    print(f"[refine] sweep_checkpointing(solver_refine=True): {len(rows_r)} "
+          f"rows equal to the plain sweep's; dp_recurrence launches {n}")
+    # 2 launches: a verified solve; a fallback would make 3
+    check(n == 2, f"refine: the refined sweep made {n} launches, expected 2")
+    n_mkt = 0
+    for obj, _ in MKT_OBJECTIVES:
+        dp_recurrence.launches = 0
+        tabs = scenarios.solve_market_tables(
+            grid, mkt_inputs["mkt"], regimes=MKT_REGIMES, dp_objective=obj,
+            solver_refine=True, device="cuda", **mkt_inputs["dp_kw"])
+        n_mkt += dp_recurrence.launches
+        for regime in MKT_REGIMES:
+            info = tabs[regime].refine_info
+            check(info["verified_col0"] and not info["fallback"]
+                  and same_tables(torch, tabs[regime],
+                                  mkt_inputs["tabs"][obj][regime]),
+                  f"refine: market {obj}/{regime} tables differ ({info})")
+    launches += n_mkt
+    want_mkt = 2 * len(MKT_OBJECTIVES) * len(MKT_REGIMES)
+    print(f"[refine] solve_market_tables(solver_refine=True), both "
+          f"objectives x {len(MKT_REGIMES)} regimes: verified, tables "
+          f"bit-identical to the plain ones; dp_recurrence launches {n_mkt}")
+    check(n_mkt == want_mkt, f"refine: the refined market solves made "
+                             f"{n_mkt} launches, expected {want_mkt}")
+
+    # a forced fallback: every candidate cap 1, so the pre-sweeps miss
+    # argmins and the column-0 check must catch it
+    dists = cases[0][1]
+    with mock.patch.object(R, "candidate_caps",
+                           lambda Kc, segs, **_: (1,) * len(segs)):
+        dp_recurrence.launches = 0
+        fb = checkpointing.solve_batch(dists, J_MAIN, refine=True, **kw)
+        n = dp_recurrence.launches
+    launches += n
+    info = fb.refine_info
+    same = same_tables(torch, fb,
+                       checkpointing.solve_batch(dists, J_MAIN, **kw))
+    print(f"[refine] forced fallback (caps 1): verified_col0 "
+          f"{info['verified_col0']}, fallback {info['fallback']}, tables "
+          f"equal to the plain solve {same}, launches {n}")
+    check(info["fallback"] and not info["verified_col0"] and same and n == 3,
+          f"refine: forced fallback {info}, equal {same}, launches {n}")
+    timing.update(refine_launches=launches, card=smi)
+    print("[timing] refine " + json.dumps(timing))
+    return launches
+
+
+class RecordedStream:
+    """A lifetime stream that records what ``inner`` draws or, without
+    ``inner``, replays recorded ``values`` in order."""
+
+    def __init__(self, inner=None, values=None):
+        self.inner, self.values, self.i = inner, list(values or ()), 0
+
+    def next(self) -> float:
+        if self.inner is not None:
+            self.values.append(self.inner.next())
+            return self.values[-1]
+        self.i += 1
+        return self.values[self.i - 1]
+
+    def set_regime(self, vm_types):
+        if self.inner is not None:
+            self.inner.set_regime(vm_types)
+
+
+def runtime_run(torch, refine, stream, device):
+    """One closed-loop run of RT_OBS observations: the runtime, its report
+    and (obs, V, K, refine_info) of the cold tables (obs None) and of each
+    swap."""
+    from repro_torch import fault
+    from repro_torch.core import runtime, scenarios
+    cfg = runtime.RuntimeConfig(
+        base_scenarios=tuple(sc.name for sc in scenarios.default_grid()),
+        solver_refine=refine, **RT_CONFIG)
+    rt = runtime.FleetRuntime(
+        cfg, injector=fault.FaultInjector(fault.default_schedule(RT_OBS),
+                                          seed=0),
+        stream=stream, device=device)
+    live = rt.live_tables
+    tables = [(None, live.V.clone(), live.K.clone(), live.refine_info)]
+    for _ in range(RT_OBS):
+        rt.step()
+        if rt.live_tables is not live:
+            live = rt.live_tables
+            tables.append((rt.obs - 1, live.V.clone(), live.K.clone(),
+                           live.refine_info))
+    return rt, rt.report(), tables
+
+
+def swap_keys(rep):
+    return [(s.obs, s.reason, s.warm) for s in rep.swaps]
+
+
+def runtime_phase(torch, dp_recurrence, dp_recurrence_plain, smi):
+    """Phase 15: the closed loop at full width on the card (refinement off,
+    then on, on one recorded stream), replayed on the CPU, the warm-start
+    identity on the card, and its timing.  Returns the DP launches of the
+    run without refinement."""
+    from repro_torch.core import fitting, runtime
+    from repro_torch.core.policies import checkpointing
+    rec = RecordedStream(runtime.FleetStream(
+        seed=0, block=RT_CONFIG["stream_block"],
+        vm_types=RT_CONFIG["stream_vm_types"], device="cuda"))
+    dp_recurrence.launches = 0
+    t0 = time.perf_counter()
+    rt, rep, tabs = runtime_run(torch, False, rec, "cuda")
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dp_recurrence.launches
+    print(f"[runtime] {RT_OBS} observations, {len(rt.scenario_names)} "
+          f"scenarios (DP {tuple(rt.live_tables.V.shape)}): {rep.n_refits} "
+          f"refits, {rep.change_points} change points, {len(rep.swaps)} "
+          f"swaps, retries {rep.retries}, degraded {rep.degraded}, "
+          f"adaptation lag {rep.adaptation_lag_obs}, regret "
+          f"{rep.regret_hours} h ({rep.regret_frac}); {first_s:.2f} s; "
+          f"dp_recurrence launches {launches}")
+    for obs, kind, detail in rep.events:
+        print(f"[runtime]   obs {obs:5d}: {kind:22s} {detail}")
+    check(rep.retries == {"fit": 2, "solve": 1},
+          f"runtime: retries {rep.retries}")
+    drift = next(o for o, k, _ in rep.events if k == "drift-injected")
+    check(rep.adaptation_lag_obs is not None and any(
+        s.reason == "change-point" and s.obs > drift for s in rep.swaps),
+        "runtime: no change-point swap answered the drift")
+    regrets = [s.regret_hours for s in rep.swaps
+               if s.regret_hours is not None]
+    check(rep.regret_hours is not None
+          and all(np.isfinite(r) for r in regrets),
+          f"runtime: regrets {regrets}")
+    check(launches == len(rep.swaps) + 1,
+          f"runtime: {launches} DP launches for {len(rep.swaps)} swaps and "
+          f"the cold solve")
+
+    dp_recurrence.launches = 0
+    rt_r, rep_r, tabs_r = runtime_run(torch, True,
+                                      RecordedStream(values=rec.values),
+                                      "cuda")
+    launches_r = dp_recurrence.launches
+    same = rep_r.events == rep.events and swap_keys(rep_r) == swap_keys(rep)
+    bits = len(tabs_r) == len(tabs) and all(
+        a[0] == b[0] and torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+        for a, b in zip(tabs, tabs_r))
+    infos = [t[3] for t in tabs_r]
+    verified = all(i["verified_col0"] and not i["fallback"] for i in infos)
+    print(f"[runtime] solver_refine=True on the recorded stream: events and "
+          f"swaps equal {same}; every swap's tables bit-identical {bits}; "
+          f"the cold solve and all {len(rep_r.swaps)} swaps verified without "
+          f"fallback {verified}; last refine_info {infos[-1]}; "
+          f"dp_recurrence launches {launches_r}")
+    check(same and bits, "runtime: the refined run differs")
+    check(verified, f"runtime: a refined solve was not verified: {infos}")
+    check(launches_r == 2 * (len(rep_r.swaps) + 1),
+          f"runtime: {launches_r} DP launches for the refined run's "
+          f"{len(rep_r.swaps)} swaps and cold solve, expected "
+          f"{2 * (len(rep_r.swaps) + 1)}")
+
+    t0 = time.perf_counter()
+    rt_c, rep_c, _ = runtime_run(torch, False,
+                                 RecordedStream(values=rec.values), "cpu")
+    cpu_s = time.perf_counter() - t0
+    V, Vc = rt.live_tables.V.cpu(), rt_c.live_tables.V
+    k_agree = float((rt.live_tables.K.cpu() == rt_c.live_tables.K)
+                    .double().mean())
+    close = bool(torch.allclose(V, Vc, rtol=1e-5, atol=1e-5))
+    same_c = rep_c.events == rep.events \
+        and swap_keys(rep_c) == swap_keys(rep)
+    print(f"[runtime] CPU replay of the recorded stream ({cpu_s:.1f} s): "
+          f"events and swaps equal {same_c}; live tables max|dV| "
+          f"{float((V - Vc).abs().max()):.3e}, K agreement {k_agree:.6f}")
+    check(same_c and close and k_agree >= 0.999,
+          "runtime: the CPU replay differs")
+
+    dists = rt._dists()
+    kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA, device="cuda")
+    cold3 = checkpointing.solve_batch(dists, J_MAIN, n_sweeps=3, **kw)
+    with recorded_launches(dp_recurrence) as launched:
+        warm = checkpointing.solve_batch(dists, J_MAIN, n_sweeps=1,
+                                         v_init=cold3.V, **kw)
+        rt._solve(warm=True, inject=False)
+    cold4 = checkpointing.solve_batch(dists, J_MAIN, n_sweeps=4, **kw)
+    ident = same_tables(torch, warm, cold4)
+    print(f"[runtime] warm-start identity on the card: one warm sweep from "
+          f"a 3-sweep V equals the 4-sweep cold solve {ident}")
+    check(ident, "runtime: warm-start identity fails on the card")
+    # the warm sweep above and a runtime warm re-solve, each against the
+    # plain version on the same inputs
+    check(hold_to_plain(torch, dp_recurrence_plain, launched,
+                        "runtime warm")
+          == 2, "runtime: expected 2 recorded warm launches")
+
+    # timing, after the runs above as warm-up
+    window = np.asarray(rt.tracker._obs)
+    timing = {
+        "cold_solve_ms": host_ms(
+            torch, lambda: rt._solve(warm=False, inject=False)),
+        "warm_solve_ms": host_ms(
+            torch, lambda: rt._solve(warm=True, inject=False)),
+        "refined_cold_solve_ms": host_ms(
+            torch, lambda: rt_r._solve(warm=False, inject=False)),
+        "refined_warm_solve_ms": host_ms(
+            torch, lambda: rt_r._solve(warm=True, inject=False)),
+        "measure_regret_ms": host_ms(torch, rt.measure_regret),
+        "refit_ms": host_ms(torch, lambda: fitting.fit_samples(
+            "constrained", window, device="cuda")),
+    }
+    t0 = time.perf_counter()
+    runtime_run(torch, False, RecordedStream(values=rec.values), "cuda")
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3
+    wall, dev_ms, prof_rows = profile_window(
+        torch, lambda: rt._try_swap("change-point"), top=8)
+    busy = None if dev_ms is None else dev_ms / wall
+    print(f"[profile] one swap (warm solve, validation, regret): wall "
+          f"{wall:.2f} ms, device busy "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms (share "
+          f"{busy if busy is None else round(busy, 4)}); device events:")
+    for name, ms, calls in prof_rows:
+        print(f"[profile] swap   {ms:9.3f} ms  {calls:6d} x  {name}")
+    timing.update(run_ms=run_ms, run_ms_per_obs=run_ms / RT_OBS,
+                  first_run_s=first_s, cpu_replay_s=cpu_s,
+                  dp_launches_run=launches, dp_launches_refined_run=launches_r,
+                  swaps=len(rep.swaps), swap_profiled_wall_ms=wall,
+                  swap_device_ms=dev_ms, swap_device_busy_share=busy,
+                  card=smi)
+    print("[timing] runtime " + json.dumps(timing))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1552,6 +1974,14 @@ def main() -> int:
 
     # -- 13. the Eq. 1 fit --------------------------------------------------
     fit_phase(torch, smi)
+
+    # -- 14. refinement -----------------------------------------------------
+    kernel["launches_by_path"]["refine"] = refine_phase(
+        torch, dp_recurrence, dp_recurrence_plain, mkt_inputs, sweep_kw, smi)
+
+    # -- 15. the closed loop ------------------------------------------------
+    kernel["launches_by_path"]["runtime"] = runtime_phase(
+        torch, dp_recurrence, dp_recurrence_plain, smi)
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),

@@ -358,22 +358,31 @@ class Uniform(_DistBase):
         return (b_ * b_ - a_ * a_) / (2.0 * L)
 
 
-def _interp(x, xp, fp, left, right):
-    """``jnp.interp`` for increasing ``xp``: linear between the knots,
-    ``left`` below ``xp[0]`` and ``right`` above ``xp[-1]``; a knot
-    interval of width at most ``spacing(eps)`` (a duplicated knot) takes
-    the value at its left end."""
-    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, xp.shape[0] - 1)
-    f0 = fp[i - 1]
-    dx = xp[i] - xp[i - 1]
-    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float64).eps))
-    f = torch.where(dx0, f0, f0 + ((x - xp[i - 1])
-                                   / torch.where(dx0, 1.0, dx))
-                    * (fp[i] - f0))
-    f = torch.where(x < xp[0], torch.as_tensor(left, dtype=f.dtype,
-                                               device=f.device), f)
-    return torch.where(x > xp[-1], torch.as_tensor(right, dtype=f.dtype,
-                                                   device=f.device), f)
+def _interp(x, xp, fp, left=None, right=None):
+    """``jnp.interp`` for increasing knots ``xp``: linear between the knots,
+    ``left`` below ``xp[0]`` and ``right`` above ``xp[-1]`` (``fp``'s end
+    values when None); a knot interval of width at most ``spacing(eps)``
+    of the knots' dtype (a duplicated knot) takes the value at its left
+    end.  ``xp`` / ``fp`` are ``(G,)`` (any ``x``) or rows ``(B, G)``
+    (``x`` ``(B, n)``), one interpolant per row."""
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1,
+                    xp.shape[-1] - 1)
+    if xp.ndim == 1:
+        take = lambda a, k: a[k]                          # noqa: E731
+    else:
+        take = lambda a, k: torch.gather(a, -1, k)        # noqa: E731
+    x0, f0 = take(xp, i - 1), take(fp, i - 1)
+    dx = take(xp, i) - x0
+    tiny = np.spacing(np.finfo(str(xp.dtype).split(".")[-1]).eps)
+    dx0 = torch.abs(dx) <= float(tiny)
+    f = torch.where(dx0, f0, f0 + ((x - x0) / torch.where(dx0, 1.0, dx))
+                    * (take(fp, i) - f0))
+    lo = fp[..., :1] if left is None else torch.as_tensor(
+        left, dtype=f.dtype, device=f.device)
+    hi = fp[..., -1:] if right is None else torch.as_tensor(
+        right, dtype=f.dtype, device=f.device)
+    f = torch.where(x < xp[..., :1], lo, f)
+    return torch.where(x > xp[..., -1:], hi, f)
 
 
 @_dist

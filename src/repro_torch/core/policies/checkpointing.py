@@ -20,13 +20,14 @@ from __future__ import annotations
 
 import dataclasses
 import types
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ...device import resolve_device
 from . import solver_backends
+from .solver_backends import refine as refine_mod
 from .solver_backends.grids import _EPS, cdf_grids, price_cum_grids
 
 OBJECTIVES = ("makespan", "dollars")
@@ -67,6 +68,7 @@ class BatchDPTables:
     restart_overhead: float
     horizon_idx: int
     backend: str = "reference"   # provenance, not part of table identity
+    refine_info: Optional[dict] = None   # refine=True's plan and outcome
     objective: str = "makespan"
 
     def __len__(self) -> int:
@@ -134,10 +136,65 @@ def _dollar_inputs(price, grid_dt: float, t_max: int, job_steps: int,
             torch.as_tensor(ro, device=device))
 
 
+def _dispatch_refined(mod, dists, Fc, Hc, grid_dt, ro, v_init, rplan,
+                      refine_check: str, price, Pc, dev, *, j_max: int,
+                      t_max: int, delta_steps: int, n_sweeps: int):
+    """The coarse-to-fine pipeline (see ``solver_backends.refine``) on the
+    backend module ``mod``: a coarse hint solve at ``factor x grid_dt``
+    (the dollar objective's on a coarse dollar grid from the same
+    ``price``), its argmin table turned into per-segment candidate caps on
+    the host, pruned pre-sweeps and one full-resolution sweep - falling
+    back to ``mod``'s unrefined solve when the column-0 check (or the
+    optional full check) fails.  The dollar restart overhead ``ro`` is
+    shared between levels (the same launch cell at either resolution)."""
+    statics = dict(j_max=j_max, t_max=t_max, delta_steps=delta_steps,
+                   n_sweeps=n_sweeps)
+    factor, radius = rplan["factor"], rplan["radius"]
+    j_max_c, delta_c = rplan["j_max_c"], rplan["delta_steps_c"]
+    dt_c = grid_dt * factor
+    fh = [cdf_grids(d, dt_c, dev) for d in dists]
+    t_max_c = fh[0][2]
+    Fc_c = torch.stack([g[0] for g in fh])
+    Hc_c = torch.stack([g[1] for g in fh])
+    Pc_c = None
+    if Pc is not None:
+        Pc_c, _ = _dollar_inputs(price, dt_c, t_max_c, j_max_c, delta_c, 0.0,
+                                 len(dists), dev)
+    _, Kc = mod.solve_tables_batch(
+        Fc_c, Hc_c, dt_c, ro, None, Pc_c, j_max=j_max_c, t_max=t_max_c,
+        delta_steps=delta_c, n_sweeps=n_sweeps)
+    caps = refine_mod.candidate_caps(
+        Kc, refine_mod.cone_segments(j_max, t_max, delta_steps),
+        factor=factor, radius=radius, j_max_c=j_max_c, t_max_c=t_max_c)
+    V, K, ok = refine_mod.refined_solve(mod, Fc, Hc, grid_dt, ro, v_init, Pc,
+                                        caps=caps, **statics)
+    info = dict(rplan, applied=True, t_max_c=t_max_c, caps=list(caps),
+                verified_col0=bool(ok.all()), fallback=False)
+    if not info["verified_col0"]:
+        # a cap cut off an argmin on the restart-cost chain: serve the
+        # unrefined solve instead
+        V, K = mod.solve_tables_batch(Fc, Hc, grid_dt, ro, v_init, Pc,
+                                      **statics)
+        info["fallback"] = True
+    elif refine_check == "full":
+        # compare the whole refined table with the unrefined solve (costs
+        # more than the solve it checks)
+        Vf, Kf = mod.solve_tables_batch(Fc, Hc, grid_dt, ro, v_init, Pc,
+                                        **statics)
+        info["full_check_match"] = bool(torch.equal(V, Vf)) \
+            and bool(torch.equal(K, Kf))
+        if not info["full_check_match"]:
+            V, K = Vf, Kf
+            info["fallback"] = True
+    return V, K, info
+
+
 def solve_batch(dists: Sequence, job_steps: int, *,
                 grid_dt: float = 1.0 / 60.0, delta_steps: int = 1,
                 n_sweeps: int = 3, restart_overhead: float = 0.0, v_init=None,
-                backend: str = "auto", objective: str = "makespan",
+                backend: str = "auto", refine: bool = False,
+                refine_factor: int = 4, refine_radius: Optional[int] = None,
+                refine_check: str = "col0", objective: str = "makespan",
                 price=None, device="cuda") -> BatchDPTables:
     """Solve the checkpointing DP for a scenario batch sharing one deadline.
 
@@ -145,6 +202,22 @@ def solve_batch(dists: Sequence, job_steps: int, *,
     recurrence otherwise), ``"reference"`` or ``"cuda"``.  ``v_init``
     warm-starts the restart-cost fixed point from a previous solve's
     ``(S, j_max+1, t_max+1)`` V of the same objective.
+
+    ``refine=True`` runs the coarse-to-fine pipeline on that backend: a
+    coarse solve at ``refine_factor x grid_dt`` supplies argmin hints that
+    cap the pre-sweeps' candidate axis (to ``factor*K_c + refine_radius``
+    per segment, ``refine_radius`` 3 x the factor by default) inside the
+    column-0 dependency cone, and the final sweep is the backend's solve
+    at full resolution.  A bit-level column-0 check guards every
+    pre-sweep and falls back to the unrefined solve on failure
+    (``refine_check="full"`` also compares the whole table).
+    ``refine_info`` records the plan, the caps and the outcome; a grid too
+    small to refine (or one sweep) is solved plainly with
+    ``{"applied": False, "reason": "degenerate"}``.  Refinement is kept for
+    parity with ``repro`` and is SLOWER on CUDA: its row-serial pre-sweeps
+    cost 15-23x the one-launch kernel solve at the sweep's size (PERF.md
+    section 5), so leave it off there unless a capped-candidate kernel mode
+    is measured to pay.
 
     ``objective="dollars"`` with ``price=`` (``prices``/``cum``/``dt`` of a
     price grid; one row broadcasts, otherwise one row per scenario) makes V
@@ -184,13 +257,29 @@ def solve_batch(dists: Sequence, job_steps: int, *,
         Pc, ro = _dollar_inputs(price, grid_dt, t_max, job_steps, delta_steps,
                                 restart_overhead, len(dists), dev)
     name = solver_backends.resolve(backend, dev)
-    V, K = solver_backends.get(name).solve_tables_batch(
-        Fc, Hc, grid_dt, ro, v_init, Pc, j_max=int(job_steps), t_max=t_max,
-        delta_steps=int(delta_steps), n_sweeps=n_sweeps)
+    mod = solver_backends.get(name)
+    statics = dict(j_max=int(job_steps), t_max=t_max,
+                   delta_steps=int(delta_steps), n_sweeps=n_sweeps)
+    rplan = refine_info = None
+    if refine:
+        if refine_check not in ("col0", "full"):
+            raise ValueError(f"refine_check={refine_check!r}; expected "
+                             f"'col0' or 'full'")
+        rplan = refine_mod.plan(int(job_steps), t_max, int(delta_steps),
+                                n_sweeps, refine_factor, refine_radius)
+        refine_info = {"applied": False, "reason": "degenerate"}
+    if rplan is None:
+        V, K = mod.solve_tables_batch(Fc, Hc, grid_dt, ro, v_init, Pc,
+                                      **statics)
+    else:
+        V, K, refine_info = _dispatch_refined(
+            mod, dists, Fc, Hc, grid_dt, ro, v_init, rplan, refine_check,
+            price, Pc, dev, **statics)
     return BatchDPTables(V=V, K=K, grid_dt=grid_dt,
                          delta_steps=int(delta_steps),
                          restart_overhead=restart_overhead, horizon_idx=t_max,
-                         backend=name, objective=objective)
+                         backend=name + ("+refine" if refine else ""),
+                         refine_info=refine_info, objective=objective)
 
 
 def solve(dist, job_steps: int, *, grid_dt: float = 1.0 / 60.0,

@@ -26,13 +26,15 @@ def _f64(dist, x):
     return torch.as_tensor(x, dtype=torch.float64, device=dist.device)
 
 
-def linspace(start: float, stop: float, num: int) -> np.ndarray:
-    """``num`` float64 points from ``start`` to ``stop`` inclusive, the last
-    point ``stop`` exactly, in the expression tree of compiled
-    ``jnp.linspace`` under x64: ``start * (1 - i * r) + i * (stop * r)``
-    with ``r = 1 / (num - 1)`` rounded once (XLA turns the division of the
-    iota by ``num - 1`` into a product with ``r`` and reassociates
-    ``(i * r) * stop`` into ``i * (stop * r)``).
+def linspace(start: float, stop: float, num: int,
+             dtype=np.float64) -> np.ndarray:
+    """``num`` points of ``dtype`` (float64 by default) from ``start`` to
+    ``stop`` inclusive, the last point ``stop`` exactly, in the expression
+    tree of compiled ``jnp.linspace`` (under x64 for float64):
+    ``start * (1 - i * r) + i * (stop * r)`` with ``r = 1 / (num - 1)``
+    rounded once (XLA turns the division of the iota by ``num - 1`` into a
+    product with ``r`` and reassociates ``(i * r) * stop`` into
+    ``i * (stop * r)``), every operation rounded in ``dtype``.
 
     At ``start = 0`` (every caller here) the first product is an exact
     zero, so each point is ``i * (stop * r)`` whether or not the backend
@@ -41,14 +43,14 @@ def linspace(start: float, stop: float, num: int) -> np.ndarray:
     FMAs in its vector loop but not in its unrolled or remainder code, so
     which of them rounds once depends on ``num``; numpy rounds every
     operation, which puts a point at most one ulp from XLA's."""
+    f = np.dtype(dtype).type
     div = num - 1
     if div < 1:
-        return np.full((max(num, 0),), float(start))
-    r = np.float64(1.0) / np.float64(div)
-    i = np.arange(div, dtype=np.float64)
-    out = (np.float64(start) * (1.0 - i * r)
-           + i * (np.float64(stop) * r))
-    return np.concatenate([out, [np.float64(stop)]])
+        return np.full((max(num, 0),), f(start))
+    r = f(1.0) / f(div)
+    i = np.arange(div, dtype=f)
+    out = f(start) * (f(1.0) - i * r) + i * (f(stop) * r)
+    return np.concatenate([out, [f(stop)]])
 
 
 def capped_cdf(dist, t):

@@ -58,6 +58,9 @@ class Scenario:
     launch_clock: Optional[float] = None  # overrides the phase's clock
     dist_kwargs: Mapping = dataclasses.field(default_factory=dict)
     description: str = ""
+    # a live fitted distribution (the closed-loop runtime's latest Eq. 1
+    # refit) served as it is instead of the catalog resolution
+    dist_override: Optional[object] = None
 
     @property
     def clock(self) -> float:
@@ -67,7 +70,10 @@ class Scenario:
 
     def dist(self):
         """The scenario's lifetime model: the zone's scaling applied to the
-        type's base Eq. 1 fit, then ``dist_kwargs``."""
+        type's base Eq. 1 fit, then ``dist_kwargs``; a ``dist_override``
+        short-circuits all of it."""
+        if self.dist_override is not None:
+            return self.dist_override
         zone = ZONE_PARAMS[self.zone]
         base = dists.VM_TYPE_PARAMS[self.vm_type]
         kw = dict(A=base["A"] * zone["A_scale"],
@@ -198,6 +204,7 @@ def sweep_checkpointing(scenarios: Iterable, *,
                         restart_overhead: float = 0.0, n_sweeps: int = 3,
                         tables: Optional["ckpt.BatchDPTables"] = None,
                         solver_backend: str = "auto",
+                        solver_refine: bool = False,
                         device="cuda") -> list:
     """Expand (scenario x policy x seed) over the device executor: ``repro``'s
     ``mode="batched"`` fold.
@@ -211,7 +218,9 @@ def sweep_checkpointing(scenarios: Iterable, *,
     (scenario, seed) and its table by the R seeds of its (scenario, policy),
     both through the executor's table/pool indices.  Truncated trials are
     NaN-flagged and excluded from the row statistics; ``unfinished_frac``
-    records them.
+    records them.  ``solver_backend`` / ``solver_refine`` pass through to
+    ``solve_batch``'s ``backend`` / ``refine`` (refinement is slower than
+    the plain solve on CUDA; see ``solve_batch``).
     """
     dev = resolve_device(device)
     scs = _resolve(scenarios)          # once: scenarios may be a generator
@@ -231,7 +240,7 @@ def sweep_checkpointing(scenarios: Iterable, *,
     batch = tables if tables is not None else ckpt.solve_batch(
         dist_list, job_steps, grid_dt=grid_dt, delta_steps=delta_steps,
         n_sweeps=n_sweeps, restart_overhead=restart_overhead,
-        backend=solver_backend, device=dev)
+        backend=solver_backend, refine=solver_refine, device=dev)
     p_fail_fresh = [float(d.cdf(job_steps * grid_dt)) for d in dist_list]
     expected = batch.V[:, job_steps, 0].cpu().tolist()
     first_sr, pool_sr = engine.draw_lifetime_pool_batch(
@@ -357,13 +366,6 @@ def sweep_service(scenarios: Iterable, *,
 _MARKET_POLICIES = ("fixed", "cheapest", "migrate")
 
 
-def _no_refine(solver_refine: bool) -> None:
-    if solver_refine:
-        raise NotImplementedError(
-            "solver_refine=True: coarse-to-fine refinement is not ported "
-            "yet (ROADMAP.md, queue 1, item 2: solver_backends/refine.py)")
-
-
 def solve_market_tables(scenarios: Iterable, market, *,
                         regimes: Sequence[str] = ("calm", "crunch"),
                         job_steps: int = 300, grid_dt: float = 1.0 / 60.0,
@@ -381,8 +383,9 @@ def solve_market_tables(scenarios: Iterable, market, *,
     per-scenario tables, crunch tables price in the boosted early hazard.
     ``dp_objective="dollars"`` solves each regime under the dollar
     objective against the market's price grid seen from that regime's
-    launch time (``market.grid().shift(launch_time)``)."""
-    _no_refine(solver_refine)
+    launch time (``market.grid().shift(launch_time)``).
+    ``solver_refine`` passes through to ``solve_batch(refine=)`` (slower
+    than the plain solve on CUDA; see ``solve_batch``)."""
     dev = resolve_device(device)
     scs = _resolve(scenarios)
     grid0 = market.grid() if dp_objective == "dollars" else None
@@ -394,8 +397,8 @@ def solve_market_tables(scenarios: Iterable, market, *,
         out[regime] = ckpt.solve_batch(
             dist_list, job_steps, grid_dt=grid_dt, delta_steps=delta_steps,
             n_sweeps=n_sweeps, restart_overhead=restart_overhead,
-            backend=solver_backend, objective=dp_objective, price=price,
-            device=dev)
+            backend=solver_backend, refine=solver_refine,
+            objective=dp_objective, price=price, device=dev)
     return out
 
 
@@ -477,11 +480,12 @@ def sweep_market(scenarios: Iterable, *, market=None,
     ``cost_path="reference"`` bills through the serial
     ``market.integrate_cost_ref`` loop instead of the gather.  Under
     ``dp_objective="dollars"`` the tables minimize expected dollars and the
-    ``feasible_slack`` gate compares expected dollars.  Returns flat rows
-    in ``repro``'s order and schema.
+    ``feasible_slack`` gate compares expected dollars.  ``solver_refine``
+    passes through to ``solve_batch(refine=)`` (slower than the plain solve
+    on CUDA; see ``solve_batch``).  Returns flat rows in ``repro``'s order
+    and schema.
     """
     from . import market as market_mod
-    _no_refine(solver_refine)
     dev = resolve_device(device)
     scs = _resolve(scenarios)
     S = len(scs)
@@ -523,7 +527,7 @@ def sweep_market(scenarios: Iterable, *, market=None,
                 dist_list, job_steps, grid_dt=grid_dt,
                 delta_steps=delta_steps, n_sweeps=n_sweeps,
                 restart_overhead=restart_overhead, backend=solver_backend,
-                objective=dp_objective,
+                refine=solver_refine, objective=dp_objective,
                 price=g if dp_objective == "dollars" else None, device=dev)
         # per-leaf expected cost of a fresh job (hours, or dollars under the
         # dollar objective): the substitution policies' feasibility signal

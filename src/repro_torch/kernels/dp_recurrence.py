@@ -58,6 +58,62 @@ def _check_inputs(Fc, Hc, col0, Pc, Ro, *, j_max, t_max, delta_steps,
                          f"got {j_max}, {delta_steps}, {n_sweeps}")
 
 
+class Terms:
+    """The per-candidate operands of the recurrence on ``(S, T)`` grids:
+    the column-independent tensors :func:`candidate_terms` reads, built
+    once per solve (``dtf`` is ``grid_dt`` as a float32 device tensor)."""
+
+    def __init__(self, Fc, Hc, grid_dt: float, t_max: int, Pc=None):
+        dev, f32 = Fc.device, torch.float32
+        self.Fc, self.Hc, self.Pc, self.t_max = Fc, Hc, Pc, t_max
+        self.dtf = torch.tensor(grid_dt, dtype=f32, device=dev)
+        self.t = torch.arange(Fc.shape[1], device=dev)
+        self.Ft, self.Ht = Fc[:, :, None], Hc[:, :, None]
+        self.St = torch.clamp(1.0 - self.Ft, min=_EPS)
+        self.tdt = (self.t.to(f32) * self.dtf)[None, :, None]
+        self.Pt = None if Pc is None else Pc[:, :Fc.shape[1], None]
+
+
+def candidate_terms(tm: Terms, w):
+    """The operands of the candidates whose segment (work plus trailing
+    checkpoint) spans ``w`` grid steps, ``w`` a 1-D tensor: the clipped end
+    ages ``e`` ``(T, n)``, the failure probability ``p`` and expected lost
+    work ``el`` ``(S, T, n)``, the segment hours ``wdt`` ``(n,)`` and, for
+    dollars, the segment dollars ``dP`` and average price ``pb``
+    ``(S, T, n)`` (else None).  Every element rounds alike whichever
+    columns are evaluated together, so a caller may evaluate a row's
+    candidates at once or hoist a whole candidate axis."""
+    wdt = w.to(torch.float32) * tm.dtf
+    endx = tm.t[:, None] + w[None, :]                  # (T, n)
+    e = torch.clamp(endx, max=tm.t_max)
+    dFe = tm.Fc[:, e] - tm.Ft                          # (S, T, n)
+    p = torch.clamp(dFe / tm.St, 0.0, 1.0)
+    dF = torch.clamp(dFe, min=_EPS)
+    el = torch.minimum(
+        torch.clamp((tm.Hc[:, e] - tm.Ht) / dF - tm.tdt, min=0.0), wdt)
+    if tm.Pc is None:
+        return e, p, el, wdt, None, None
+    dP = tm.Pc[:, endx] - tm.Pt
+    return e, p, el, wdt, dP, dP / wdt
+
+
+def candidate_cost(p, el, wdt, vrow, Rj, dP=None, pb=None):
+    """The expected cost of a candidate from its operands, the successor
+    value ``vrow`` and the restart cost ``Rj`` (all broadcast)."""
+    if dP is None:
+        return (1.0 - p) * (wdt + vrow) + p * (el + Rj)
+    return (1.0 - p) * (dP + vrow) + p * (el * pb + Rj)
+
+
+def restart_base(Fc, restart_overhead: float, Ro=None):
+    """What the restart-cost snapshot adds to column 0: the makespan
+    overhead as a float32 device scalar, or the ``(S, 1)`` dollar one."""
+    if Ro is None:
+        return torch.tensor(restart_overhead, dtype=torch.float32,
+                            device=Fc.device)
+    return Ro[:, None]
+
+
 def dp_recurrence_plain(Fc, Hc, col0, *, grid_dt: float,
                         restart_overhead: float, j_max: int, t_max: int,
                         delta_steps: int, n_sweeps: int, Pc=None, Ro=None):
@@ -66,17 +122,9 @@ def dp_recurrence_plain(Fc, Hc, col0, *, grid_dt: float,
                   delta_steps=delta_steps, n_sweeps=n_sweeps)
     S, T = Fc.shape
     dev, f32 = Fc.device, torch.float32
-    dtf = torch.tensor(grid_dt, dtype=f32, device=dev)
-    t = torch.arange(T, device=dev)
-    Ft, Ht = Fc[:, :, None], Hc[:, :, None]
-    St = torch.clamp(1.0 - Ft, min=_EPS)
+    tm = Terms(Fc, Hc, grid_dt, t_max, Pc)
     dead = (1.0 - Fc) < 1e-6
-    tdt = (t.to(f32) * dtf)[None, :, None]
-    if Pc is None:
-        ro = torch.tensor(restart_overhead, dtype=f32, device=dev)
-    else:
-        ro = Ro[:, None]
-        Pt = Pc[:, :T, None]
+    ro = restart_base(Fc, restart_overhead, Ro)
     V = torch.zeros((S, j_max + 1, T), dtype=f32, device=dev)
     K = torch.zeros((S, j_max + 1, T), dtype=torch.int32, device=dev)
     col = col0
@@ -85,22 +133,10 @@ def dp_recurrence_plain(Fc, Hc, col0, *, grid_dt: float,
         for j in range(1, j_max + 1):
             i = torch.arange(1, j + 1, device=dev)
             w = torch.where(i == j, i, i + delta_steps)
-            wdt = w.to(f32) * dtf
-            endx = t[:, None] + w[None, :]             # (T, j)
-            e = torch.clamp(endx, max=t_max)
-            dFe = Fc[:, e] - Ft                        # (S, T, j)
-            p = torch.clamp(dFe / St, 0.0, 1.0)
-            dF = torch.clamp(dFe, min=_EPS)
-            el = torch.minimum(
-                torch.clamp((Hc[:, e] - Ht) / dF - tdt, min=0.0), wdt)
+            e, p, el, wdt, dP, pb = candidate_terms(tm, w)
             vrow = V[:, (j - i)[None, :], e]
-            Rj = R[:, j, None, None]
-            if Pc is None:
-                cost = (1.0 - p) * (wdt + vrow) + p * (el + Rj)
-            else:
-                dP = Pc[:, endx] - Pt
-                pb = dP / wdt
-                cost = (1.0 - p) * (dP + vrow) + p * (el * pb + Rj)
+            cost = candidate_cost(p, el, wdt, vrow, R[:, j, None, None],
+                                  dP, pb)
             V[:, j] = torch.where(dead, R[:, j, None], cost.amin(dim=2))
             K[:, j] = torch.where(dead, j, cost.argmin(dim=2) + 1).to(
                 torch.int32)

@@ -47,13 +47,18 @@ def test_every_module_imports_without_jax_or_repro():
             repro_torch.__path__, "repro_torch.")]
         for name in names:
             importlib.import_module(name)
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 14
+    names = set(out.stdout.split())
+    assert len(names) >= 14
+    assert {"repro_torch.core.policies.solver_backends.refine",
+            "repro_torch.core.simulator", "repro_torch.core.online",
+            "repro_torch.core.runtime", "repro_torch.core.tonks",
+            "repro_torch.fault.injection"} <= names
 
 
 def test_default_device_raises_without_a_gpu():
@@ -61,8 +66,9 @@ def test_default_device_raises_without_a_gpu():
         pytest.skip("a GPU is present: the default device is usable here")
     from repro_torch import configs, resolve_device
     from repro_torch.core import distributions as TD
-    from repro_torch.core import (engine, fitting, market, scenarios, service,
-                                  service_kernel)
+    from repro_torch.core import (engine, fitting, market, online, runtime,
+                                  scenarios, service, service_kernel,
+                                  simulator, tonks)
     from repro_torch.core.policies import checkpointing
     from repro_torch.fault import PreemptionSource
     from repro_torch.launch import serve
@@ -111,6 +117,15 @@ def test_default_device_raises_without_a_gpu():
         lambda: fitting.fit("exponential", [1.0, 2.0], [0.2, 0.4]),
         lambda: fitting.fit_samples("exponential", [1.0, 2.0]),
         lambda: fitting.fit_all([1.0, 2.0]),
+        lambda: checkpointing.solve_batch([d], 4, grid_dt=1.0, refine=True),
+        lambda: online.OnlineModelTracker(),
+        lambda: runtime.FleetStream(),
+        lambda: runtime.FleetRuntime(),
+        lambda: tonks.partition_function(3, 24.0, 0.5),
+        lambda: tonks.p_boundary(3, 24.0, 0.5),
+        lambda: simulator.GroundTruth().hazard(1.0),
+        lambda: simulator.GroundTruth().cdf(1.0),
+        lambda: simulator.GroundTruth().from_uniforms(0.5),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

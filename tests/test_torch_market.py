@@ -344,11 +344,6 @@ def test_sweep_market_errors(jax_market):
     tscs, tm = _port_market()
     kw = dict(SWEEP, market=tm, device="cpu")
     carried = _carried(tabs["makespan"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 2"):
-        TSC.sweep_market(tscs, solver_refine=True, **kw)
-    with pytest.raises(NotImplementedError, match="refine"):
-        TSC.solve_market_tables(tscs, tm, solver_refine=True, device="cpu",
-                                **KW)
     with pytest.raises(ValueError, match="no entry for regime"):
         TSC.sweep_market(tscs, tables={"calm": carried["calm"]}, **kw)
     with pytest.raises(ValueError, match="this sweep needs"):
