@@ -6,9 +6,9 @@
 Phases, each of which exits nonzero on failure:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
-2. Build: compiles the four kernels of ``kernels/csrc/`` (dp_recurrence,
-   flash_attention, decode_attention, rglru_scan) with nvcc, one process
-   per source, all started together, and prints what ``-Xptxas -v`` says
+2. Build: compiles the five kernels of ``kernels/csrc/`` (dp_recurrence,
+   flash_attention, decode_attention, rglru_scan, flash_attention_bwd)
+   with nvcc, one process per source, all started together, and prints what ``-Xptxas -v`` says
    and, where the toolkit has ``cuobjdump``, the tensor-core instructions
    in each attention library's SASS (HGMMA for wgmma, HMMA for mma.sync):
    flash_attention must hold HGMMA and decode_attention HMMA.
@@ -158,16 +158,56 @@ Phases, each of which exits nonzero on failure:
    4-sweep cold solve bit for bit.  Times the cold, warm and refined
    solves, ``run()`` per observation, ``measure_regret``, a refit, and one
    swap under torch.profiler for the device's busy share.
+16. Flash backward vs plain: ``flash_attention_bwd`` against
+   ``flash_attention_bwd_plain`` on the same CUDA inputs (q, k, v, dout
+   drawn on the card; out and lse from the forward kernel) at smollm-135m's
+   training shape (B 8, S 2048, H 9, KV 3, D 64, causal) in bf16 and
+   float32, window 512, D 128 (H 56, KV 8, S 1024), S 1000 and B 1; each
+   case runs twice and must be bit-identical; the forward's LSE against the
+   plain LSE (float32 within 1e-5); the autograd Function against
+   torch.autograd through ``flash_attention_plain`` in float32.
+   Tolerances: float32 dq/dk/dv within 1e-5 x max|plain|; bf16 each
+   element within 2 bf16 ulps of the plain value or within 2^-8 x
+   max|plain| (the plain version computes in float32 and rounds once, the
+   kernel too; near zero the ulp is finer than the sums' rounding).
+17. Training path: (a) smollm-135m at full width and depth (30 layers,
+   d_model 576, 9 / 3 heads of 64, vocab 49,152, bf16 compute, float32
+   master weights, remat) through ``launch.train.train`` on the card:
+   global batch 8 x 2048, 30 steps, warmup 10, sim_hours_per_step 0.05,
+   preemption_seed 2 (DP checkpoints at 6, 13, 22, 30, a preemption at 16
+   with its emergency checkpoint and a restart), with every launch counter
+   reset just before and read just after.  Checks: every loss finite, the
+   mean of the last 10 below the first 10's, one restart, >= 2 DP
+   checkpoints, dp_recurrence launched, flash_attention_bwd 30 a step, the
+   flash forward 60 a step (the forward and remat's recompute), no serving
+   kernel; the checkpoint bytes printed; ``restarts``, ``checkpoints``,
+   ``emergency_checkpoints``, ``wasted_steps`` and ``steps_run`` equal to
+   a CPU replay of the schedule with no model.  (b) At 3 layers, full
+   width, 40 steps of 8 x 512: a clean and a preempted run end with
+   bit-identical parameters.  (c) At 3 layers, full width, float32, B 2,
+   S 256: first-step grads within 1e-4 relative (per tensor, to its
+   largest element) of the port on the CPU, and 3 steps' losses within
+   rtol 1e-5.  (d) Timing: train step ms (median of 5 after a warm-up),
+   tokens/s, peak device memory, model FLOPs (6 N tokens + attention) and
+   their share of the bf16 tensor peak; the flash forward (with LSE) and
+   backward at the training shape (CUDA-graph replays) beside their plain
+   versions, bounds and SDPA's forward and backward; the manager's DP
+   solve, one plan's host read of K, a blocking save and a restore of the
+   1.6 GB state (medians of 5); one step under torch.profiler.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -185,7 +225,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_LANES_PER_SM = 128        # FP32 units per Hopper SM, 2 ops per FMA
 BF16_TENSOR_OPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 KERNELS = ("dp_recurrence", "flash_attention", "decode_attention",
-           "rglru_scan")
+           "rglru_scan", "flash_attention_bwd")
 
 # the serving cell: recurrentgemma-2b, 4 batches of 8 x 2048-token prompts,
 # 32 greedy tokens each
@@ -240,6 +280,15 @@ FIT_FAMILIES = ("constrained", "exponential", "weibull", "gompertz_makeham")
 # (DP (9, 301, 1441)); the solve budget is wide so that the CPU replay of
 # the recorded stream never times out a solve the card run kept
 RT_OBS = 1200
+# the training cell: smollm-135m at full width and depth, global batch 8 x
+# 2048 tokens, bf16
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 8, 2048
+# 30 steps of 0.05 simulated hours under preemption seed 2: the DP plans
+# checkpoints at steps 6, 13, 22 and 30 and the pod is preempted at step 16
+# (an emergency checkpoint, a restart); five checkpoints of ~1.6 GB
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SIM_H, TRAIN_PREEMPT_SEED = 30, 10, 0.05, 2
+# the replay check (phase 17b): 3 layers at full width, 40 steps of 8 x 512
+REPLAY_STEPS, REPLAY_SEQ = 40, 512
 RT_CONFIG = dict(job_steps=J_MAIN, grid_dt=DT_MAIN, delta_steps=DELTA,
                  n_sweeps=N_SWEEPS, warm_sweeps=2, window=256,
                  refit_every=64, min_samples=64, regret_trials=256,
@@ -1751,6 +1800,446 @@ def runtime_phase(torch, dp_recurrence, dp_recurrence_plain, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+def bwd_agree(torch, label, got, want):
+    """Hold one gradient of the backward kernel to the plain version's:
+    float32 within 1e-5 x max|plain|; bf16 each element within 2 bf16 ulps
+    of the plain value or within 2^-8 x max|plain| (near zero, where the
+    ulp is tinier than the sums' rounding).  Returns max|got - want|."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err, top = float(diff.max()), float(w.abs().max())
+    if want.dtype == torch.bfloat16:
+        mag = w.abs().clamp_min(2.0 ** -133)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        bad = int(((diff > 2 * ulp) & (diff > 2.0 ** -8 * top)).sum())
+        big = w.abs() >= 2.0 ** -8 * top
+        ulps = float((diff / ulp)[big].max())
+        print(f"[flash-bwd] {label}: max|d| = {err:.3e} (max|plain| "
+              f"{top:.3e}); {ulps:.2f} bf16 ulps at most where |plain| >= "
+              f"2^-8 max; {bad} elements outside both bounds (need 0)")
+        check(bad == 0, f"{label}: {bad} elements beyond 2 bf16 ulps and "
+                        f"2^-8 x max|plain|")
+    else:
+        print(f"[flash-bwd] {label}: max|d| = {err:.3e} = "
+              f"{err / max(top, 1e-30):.3e} x max|plain| (need <= 1e-5)")
+        check(err <= 1e-5 * top, f"{label}: max|d| {err} > 1e-5 x {top}")
+    return err
+
+
+def flash_bwd_vs_plain(torch):
+    """Phase 16: the backward kernel against its plain version on the same
+    CUDA inputs, each case twice for bit-identity; the forward's LSE
+    against the plain LSE; the autograd Function against torch.autograd
+    through the plain forward.  Returns the largest error and the main
+    case's inputs."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttention, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain, flash_attention_plain)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def normal(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    worst, main = 0.0, None
+    cases = [
+        # label, B, S, H, KV, D, window, dtype
+        ("smollm train", TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, 0, bf16),
+        ("smollm train float32", TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, 0, f32),
+        ("window 512", 2, TRAIN_SEQ, 9, 3, 64, 512, bf16),
+        ("window 512 float32", 2, TRAIN_SEQ, 9, 3, 64, 512, f32),
+        ("D=128", 2, 1024, 56, 8, 128, 0, bf16),
+        ("D=128 float32", 2, 1024, 56, 8, 128, 0, f32),
+        ("S=1000", 2, 1000, 9, 3, 64, 0, bf16),
+        ("S=1000 float32", 2, 1000, 9, 3, 64, 0, f32),
+        ("B=1", 1, TRAIN_SEQ, 9, 3, 64, 0, bf16),
+    ]
+    for label, B, S, H, KV, D, window, dt in cases:
+        q = normal(B, S, H, D, dtype=dt)
+        k, v = normal(B, S, KV, D, dtype=dt), normal(B, S, KV, D, dtype=dt)
+        dout = normal(B, S, H, D, dtype=dt)
+        out, lse = flash_attention(q, k, v, window=window, return_lse=True)
+        _, lse_plain = flash_attention_plain(q, k, v, window=window,
+                                             return_lse=True)
+        d_lse = float((lse - lse_plain).abs().max())
+        print(f"[flash-bwd] {label} {tuple(q.shape)} KV {KV} window "
+              f"{window} {dt}: forward LSE max|d| = {d_lse:.3e}"
+              + (" (need <= 1e-5)" if dt == f32 else ""))
+        if dt == f32:
+            check(d_lse <= 1e-5, f"{label}: LSE differs by {d_lse}")
+        args = (q, k, v, out, lse, dout)
+        got = flash_attention_bwd(*args, window=window)
+        again = flash_attention_bwd(*args, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_plain(*args, window=window)
+        same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+        print(f"[flash-bwd] {label}: two runs bit-identical {same}")
+        check(same, f"{label}: the backward kernel is not deterministic")
+        for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+            worst = max(worst, bwd_agree(torch, f"{label} {name}", g_, w_))
+        del want
+        if label == "smollm train":
+            main = (args, window)
+    # the autograd Function against torch.autograd through the plain forward
+    q = normal(2, 512, 9, 64, dtype=f32).requires_grad_()
+    k = normal(2, 512, 3, 64, dtype=f32).requires_grad_()
+    v = normal(2, 512, 3, 64, dtype=f32).requires_grad_()
+    dout = normal(2, 512, 9, 64, dtype=f32)
+    before = flash_attention_bwd.launches
+    got = torch.autograd.grad(FlashAttention.apply(q, k, v, True, 0, None),
+                              (q, k, v), dout)
+    check(flash_attention_bwd.launches == before + 1,
+          "the autograd Function did not launch the backward kernel")
+    want = torch.autograd.grad(flash_attention_plain(q, k, v), (q, k, v),
+                               dout)
+    for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
+        bwd_agree(torch, f"autograd Function vs autograd of the plain "
+                         f"forward {name}", g_, w_)
+    torch.cuda.empty_cache()
+    return worst, main
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def schedule_replay(tc, *, total_steps, sim_hours_per_step, preemption_seed,
+                    device):
+    """The trainer's checkpoint and preemption bookkeeping with no model:
+    the same ``CheckpointManager`` and ``PreemptionSource`` at the same
+    seeds, fed the same simulated step times, saving a one-element tree.
+    Returns the counts ``TrainResult`` reports."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import distributions
+    from repro_torch.fault import PreemptionSource
+    dist = distributions.constrained_for(tc.vm_type)
+    mgr = CheckpointManager(
+        directory=tc.ckpt_dir, dist=dist, policy=tc.ckpt_policy,
+        delta_hours=tc.ckpt_cost_hours, step_time_hours=sim_hours_per_step,
+        total_steps=total_steps, async_write=tc.async_checkpoint,
+        device=device)
+    src = PreemptionSource(dist, n_pods=1, seed=preemption_seed,
+                           device=device)
+    tree = {"x": torch.zeros(1)}
+    step = restarts = wasted = steps_run = 0
+    sim_now = 0.0
+    while step < total_steps:
+        step += 1
+        steps_run += 1
+        sim_now += sim_hours_per_step
+        mgr.observe_step_time(sim_hours_per_step * 3600.0)
+        if mgr.should_checkpoint(step):
+            mgr.save(step, tree)
+        if src.poll(sim_now):
+            mgr.on_preemption_warning(step, tree)
+            restarts += 1
+            src.replace_pod(0, sim_now)
+            _, ckpt_step, _ = mgr.restore(tree)
+            wasted += step - ckpt_step
+            step = ckpt_step
+            mgr.on_restart(pod_age_hours=0.0, resumed_step=step)
+    return {"steps_run": steps_run, "restarts": restarts,
+            "checkpoints": mgr.n_saved,
+            "emergency_checkpoints": mgr.n_emergency, "wasted_steps": wasted}
+
+
+def training_path(torch, work):
+    """Phase 17a: smollm-135m at full width and depth through
+    ``launch.train.train`` under simulated preemptions, the launch counts
+    of its run, and its schedule against a CPU replay."""
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.dp_recurrence import dp_recurrence
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru_scan import linear_recurrence
+    from repro_torch.launch.train import train
+    cfg = configs.get(TRAIN_ARCH)
+    tc = TrainConfig(ckpt_dir=os.path.join(work, "main"),
+                     warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    run_kw = dict(total_steps=TRAIN_STEPS, sim_hours_per_step=TRAIN_SIM_H,
+                  preemption_seed=TRAIN_PREEMPT_SEED)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.compute_dtype} compute, remat {cfg.remat}; global batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}; {TRAIN_STEPS} steps at "
+          f"sim_hours_per_step {TRAIN_SIM_H}, preemption_seed "
+          f"{TRAIN_PREEMPT_SEED}, policy {tc.ckpt_policy}")
+    for fn in (dp_recurrence, flash_attention, flash_attention_bwd,
+               decode_attention):
+        fn.launches = 0
+    linear_recurrence.launches_by_kernel = dict.fromkeys(
+        linear_recurrence.launches_by_kernel, 0)
+    t0 = time.perf_counter()
+    res = train(cfg, tc, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                inject_preemptions=True, log_every=10, device="cuda",
+                **run_kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"dp_recurrence": dp_recurrence.launches,
+                "flash_attention": flash_attention.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches,
+                "decode_attention": decode_attention.launches,
+                "linear_recurrence": sum(
+                    linear_recurrence.launches_by_kernel.values())}
+    written = dir_bytes(tc.ckpt_dir)
+    n = res.steps_run
+    print(f"[train] {n} steps in {wall:.1f} s; restarts {res.restarts}, "
+          f"checkpoints {res.checkpoints} ({res.emergency_checkpoints} "
+          f"emergency), wasted steps {res.wasted_steps}; {written} bytes "
+          f"of checkpoints written; launches {launches}")
+    print(f"[train] losses: {[round(x, 4) for x in res.losses]}")
+    check(all(np.isfinite(res.losses)), "a training loss is not finite")
+    first, last = np.mean(res.losses[:10]), np.mean(res.losses[-10:])
+    print(f"[train] mean of the first 10 losses {first:.4f}, of the last 10 "
+          f"{last:.4f}")
+    check(n >= 20 and last < first, "the loss did not fall")
+    check(res.restarts >= 1, "no preemption fell in the run")
+    check(res.checkpoints - res.emergency_checkpoints >= 2,
+          "fewer than two DP checkpoints")
+    check(launches["dp_recurrence"] >= 1,
+          "the CheckpointManager did not launch dp_recurrence")
+    per_step_fwd = 2 * cfg.n_layers if cfg.remat else cfg.n_layers
+    print(f"[train] flash forward launches {launches['flash_attention']} = "
+          f"{n} steps x {per_step_fwd} (forward + remat recompute of "
+          f"{cfg.n_layers} layers); backward {launches['flash_attention_bwd']}"
+          f" = {n} x {cfg.n_layers}")
+    check(launches["flash_attention_bwd"] == n * cfg.n_layers,
+          "flash_attention_bwd did not launch once a layer a step")
+    check(launches["flash_attention"] == n * per_step_fwd,
+          "the flash forward's launches do not match remat")
+    check(launches["decode_attention"] == 0
+          and launches["linear_recurrence"] == 0,
+          "the training path launched a serving kernel")
+    replay = schedule_replay(
+        dataclasses.replace(tc, ckpt_dir=os.path.join(work, "replay")),
+        device="cpu", **run_kw)
+    got = {k: getattr(res, k) for k in replay}
+    print(f"[train] CPU replay of the schedule (no model): {replay}")
+    check(got == replay, f"the run's schedule {got} differs from the CPU "
+                         f"replay's {replay}")
+    shutil.rmtree(tc.ckpt_dir)
+    return launches, {"train_wall_s": wall, "steps_run": n,
+                      "restarts": res.restarts,
+                      "checkpoints": res.checkpoints,
+                      "emergency_checkpoints": res.emergency_checkpoints,
+                      "checkpoint_bytes": written,
+                      "losses_first10_mean": first,
+                      "losses_last10_mean": last}
+
+
+def replay_and_cpu(torch, work):
+    """Phases 17b-c: a clean and a preempted run at 3 layers end with
+    bit-identical parameters on the card; the card against the port on the
+    CPU in float32."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=3)
+    kw = dict(total_steps=REPLAY_STEPS, seq_len=REPLAY_SEQ,
+              global_batch=TRAIN_BATCH, verbose=False, device="cuda")
+    tc = TrainConfig(ckpt_dir=os.path.join(work, "clean"), warmup_steps=5,
+                     total_steps=REPLAY_STEPS)
+    clean = train(cfg, tc, **kw)
+    bumpy = train(cfg, dataclasses.replace(
+        tc, ckpt_dir=os.path.join(work, "bumpy")), inject_preemptions=True,
+        sim_hours_per_step=TRAIN_SIM_H, preemption_seed=TRAIN_PREEMPT_SEED,
+        **kw)
+    same = all(bool(torch.equal(a, b)) for a, b in
+               zip(clean.model.parameters(), bumpy.model.parameters()))
+    print(f"[replay] 3 layers, {REPLAY_STEPS} steps of {TRAIN_BATCH} x "
+          f"{REPLAY_SEQ}: preempted run restarts {bumpy.restarts}, "
+          f"checkpoints {bumpy.checkpoints}; final parameters bit-identical "
+          f"to the clean run's {same}; losses equal "
+          f"{bumpy.losses == clean.losses}")
+    check(bumpy.restarts >= 1, "the replay run saw no preemption")
+    check(same, "a preempted run does not replay a clean one to the bit")
+    del clean, bumpy
+    shutil.rmtree(os.path.join(work, "clean"))
+    shutil.rmtree(os.path.join(work, "bumpy"))
+
+    # 17c: the card against the port on the CPU, float32
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cpu = T.init(cfg32, torch.Generator().manual_seed(0), device="cpu",
+                 trainable=True)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=256,
+                       global_batch=2, seed=0, device="cpu")
+    batches = [pipe.batch(i) for i in range(3)]
+    worst = 0.0
+    grads = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        b = {k: v.to(dev) for k, v in batches[0].items()}
+        loss, _ = T.lm_loss(model, b)
+        grads.append(torch.autograd.grad(loss, list(model.parameters())))
+    for (name, _), gc, gg in zip(cpu.named_parameters(), *grads):
+        rel = float((gg.cpu() - gc).abs().max() / gc.abs().max())
+        worst = max(worst, rel)
+        check(rel <= 1e-4, f"card vs CPU grad {name}: relative error {rel}")
+    tc32 = TrainConfig(warmup_steps=1, total_steps=3)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        step_fn = steps.make_train_step(cfg32, tc32)
+        opt = adamw_init(dict(model.named_parameters()))
+        out = []
+        for b in batches:
+            _, opt, m = step_fn(model, opt, {k: v.to(dev)
+                                             for k, v in b.items()})
+            out.append(float(m["loss"]))
+        losses.append(out)
+    print(f"[card-vs-cpu] 3 layers, float32, B 2, S 256: losses cpu "
+          f"{losses[0]}, card {losses[1]}; first-step grads worst relative "
+          f"error {worst:.3e} (need <= 1e-4)")
+    check(np.allclose(losses[1], losses[0], rtol=1e-5, atol=0),
+          "card vs CPU losses differ beyond rtol 1e-5")
+
+
+def training_timing(torch, bwd_inputs, smi, work):
+    """Phase 17d: the train step's time, throughput and memory, its model
+    FLOPs, the flash pair's kernel times beside their plain versions,
+    bounds and SDPA, the manager's solve / plan / save / restore, and one
+    step under torch.profiler."""
+    import torch.nn.functional as F
+    from repro_torch import configs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import distributions
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    cfg = configs.get(TRAIN_ARCH)
+    tc = TrainConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda", trainable=True)
+    params = dict(model.named_parameters())
+    opt = adamw_init(params)
+    step_fn = steps.make_train_step(cfg, tc)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, seed=0,
+                        device="cuda").batch(0)
+    box = {"opt": opt}
+
+    def one_step():
+        _, box["opt"], box["m"] = step_fn(model, box["opt"], batch)
+
+    step_ms = host_ms(torch, one_step)
+    torch.cuda.reset_peak_memory_stats()
+    one_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in params.values())
+    pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    D, H = cfg.head_dim, cfg.n_heads
+    attn_flops = 12 * D * pairs * TRAIN_BATCH * H * cfg.n_layers
+    flops = 6 * n_params * tokens + attn_flops
+    timing = {"train_step_ms": step_ms,
+              "tokens_per_s": tokens / (step_ms / 1e3),
+              "peak_device_bytes": peak, "params": n_params,
+              "model_flops_per_step": flops,
+              "attention_flops_per_step": attn_flops,
+              "bf16_tensor_peak_share": flops / (step_ms / 1e3)
+              / BF16_TENSOR_OPS}
+
+    # the flash pair at the training shape (phase 16's main inputs)
+    (q, k, v, out, lse, dout), window = bwd_inputs
+    B, S, _, _ = q.shape
+    KV = k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    elt = q.element_size()
+    fwd = {
+        "ms": graph_ms(torch, [lambda: flash_attention(
+            q, k, v, window=window, return_lse=True)] * 3),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(
+            q, k, v, window=window, return_lse=True)),
+        "library_ms": graph_ms(torch, [
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)] * 3),
+        "ops": 4 * D * pairs * B * H,
+        "bytes": (2 * q.numel() + 2 * k.numel()) * elt + lse.numel() * 4}
+    bwd = {
+        "ms": graph_ms(torch, [lambda: flash_attention_bwd(
+            q, k, v, out, lse, dout, window=window)] * 3),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, window=window)),
+        "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dout_t, retain_graph=True)),
+        "ops": 10 * D * pairs * B * H,
+        "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4}
+    fwd["fp32_bound_ms"] = fwd["ops"] / fp32_peak_ops(torch)[0] * 1e3
+    bwd["fp32_bound_ms"] = 14 * D * pairs * B * H \
+        / fp32_peak_ops(torch)[0] * 1e3
+    for name, r in (("flash_attention (train, with LSE)", fwd),
+                    ("flash_attention_bwd", bwd)):
+        t_ops = r["ops"] / BF16_TENSOR_OPS * 1e3
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        r["bound_ms"] = max(t_ops, t_bytes)
+        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[timing] {name} at {tuple(q.shape)} KV {KV}: {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f}"
+              f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{r['ops']:.4g} ops, {r['bytes']:.4g} B); CUDA-core float32 "
+              f"bound of its arithmetic {r['fp32_bound_ms']:.4f} ms")
+    timing["flash_fwd_ms"], timing["flash_bwd_ms"] = fwd["ms"], bwd["ms"]
+    del lib_out
+
+    # the manager: the DP solve (and its first plan), one plan's host read
+    # of K, a blocking save and a restore of the full training state
+    dist = distributions.constrained_for(tc.vm_type)
+    mgr = CheckpointManager(
+        directory=os.path.join(work, "timing"), dist=dist, policy="dp",
+        delta_hours=tc.ckpt_cost_hours, step_time_hours=TRAIN_SIM_H,
+        total_steps=TRAIN_STEPS, async_write=False, device="cuda")
+
+    def resolve():
+        mgr._tables = None
+        mgr._recompute()
+
+    state = {"params": params, "opt": box["opt"]}
+    timing["dp_solve_and_plan_ms"] = host_ms(torch, resolve)
+    timing["plan_ms"] = host_ms(torch, mgr._plan_next)
+    timing["checkpoint_save_ms"] = host_ms(torch, lambda: mgr.save(1, state))
+    timing["checkpoint_restore_ms"] = host_ms(torch,
+                                              lambda: mgr.restore(state))
+    timing["checkpoint_bytes"] = dir_bytes(os.path.join(work, "timing"))
+    shutil.rmtree(os.path.join(work, "timing"))
+
+    wall, dev_ms, rows = profile_window(torch, one_step)
+    timing["step_profiled_wall_ms"] = wall
+    timing["step_device_ms"] = dev_ms
+    timing["step_device_busy_share"] = None if dev_ms is None \
+        else dev_ms / wall
+    print(f"[profile] train step: wall {wall:.2f} ms, device busy "
+          f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms; device "
+          f"events:")
+    for name, ms, calls in rows:
+        print(f"[profile] train   {ms:9.3f} ms  {calls:5d} x  {name}")
+    timing["card"] = smi
+    print("[timing] training " + json.dumps(timing))
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1982,6 +2471,22 @@ def main() -> int:
     # -- 15. the closed loop ------------------------------------------------
     kernel["launches_by_path"]["runtime"] = runtime_phase(
         torch, dp_recurrence, dp_recurrence_plain, smi)
+
+    # -- 16. the flash backward against its plain version ------------------
+    bwd_err, bwd_inputs = flash_bwd_vs_plain(torch)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        # -- 17a. the training path --------------------------------------
+        train_launches, _ = training_path(torch, work)
+        kernel["launches_by_path"]["training"] = \
+            train_launches["dp_recurrence"]
+        # -- 17b-c. replay and the card against the CPU ------------------
+        replay_and_cpu(torch, work)
+        # -- 17d. training timing ----------------------------------------
+        train_times = training_timing(torch, bwd_inputs, smi, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),
@@ -1999,6 +2504,22 @@ def main() -> int:
             "max_abs_err": errs[kname], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    fwd = train_times["flash_attention"]
+    kernels[1]["launches_by_path"] = {
+        "serving": serve_launches["flash_attention"],
+        "training": train_launches["flash_attention"]}
+    kernels[1]["training_shape"] = {
+        k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                            "library_ms")}
+    t = train_times["flash_attention_bwd"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/ops.py:108",
+        "launches": train_launches["flash_attention_bwd"],
+        "max_abs_err": bwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

@@ -15,6 +15,9 @@ from .base import ModelConfig, ShapeConfig, TrainConfig, SHAPES  # noqa: F401
 
 _MODULES = {
     "llama3.2-1b": "llama3_2_1b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "smollm-135m": "smollm_135m",
+    "yi-34b": "yi_34b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 

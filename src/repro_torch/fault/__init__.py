@@ -1,7 +1,7 @@
-"""Fault tolerance: the simulated provider preemption signal and the
-deterministic fault injector of the closed-loop runtime."""
+"""Fault tolerance: the simulated provider preemption signal, the straggler
+watchdog and the deterministic fault injector of the closed-loop runtime."""
 from .injection import FaultEvent, FaultInjector, default_schedule
-from .preemption import PreemptionSource
+from .preemption import PreemptionSource, StragglerWatchdog
 
 __all__ = ["FaultEvent", "FaultInjector", "PreemptionSource",
-           "default_schedule"]
+           "StragglerWatchdog", "default_schedule"]

@@ -1,12 +1,13 @@
-"""Pod-level preemption signal for the serving path.
+"""Pod-level fault tolerance: the preemption signal and the straggler
+watchdog.
 
-Port of ``repro.fault.preemption.PreemptionSource``: lifetimes drawn from
-the constrained-preemption model with the provider's 30 s advance warning,
-and the paper's VM-reuse policy at pod granularity.  Lifetimes come from
-``np.random.default_rng(seed)`` uniforms inverted by
-``engine.capped_icdf_draw``, so one seed gives the JAX package's
-lifetimes.  (Elastic re-meshing and the straggler watchdog are not ported
-yet: ROADMAP.md, queue 1.)
+Port of ``repro.fault.preemption``'s ``PreemptionSource`` (lifetimes drawn
+from the constrained-preemption model with the provider's 30 s advance
+warning, and the paper's VM-reuse policy at pod granularity) and
+``StragglerWatchdog``.  Lifetimes come from ``np.random.default_rng(seed)``
+uniforms inverted by ``engine.capped_icdf_draw``, so one seed gives the JAX
+package's lifetimes.  (Elastic re-meshing, ``plan_elastic_remesh``, is not
+ported yet: ROADMAP.md, queue 1.)
 """
 from __future__ import annotations
 
@@ -94,3 +95,28 @@ class PreemptionSource:
         age = self.pod_age(pod_id, now_hours)
         return bool(sched_policy.reuse_decision(self._dist, job_hours, age,
                                                 relaunch_overhead))
+
+
+@dataclasses.dataclass
+class StragglerWatchdog:
+    """Flags slow steps (failing hosts, thermal throttling) from step-time
+    telemetry; the runbook response on a fleet is to demote the pod, which
+    in this framework means treating it as a voluntary preemption."""
+    threshold: float = 2.0      # x median
+    window: int = 64
+
+    def __post_init__(self):
+        self._times: list[float] = []
+        self.flagged = 0
+
+    def observe(self, seconds: float) -> bool:
+        self._times.append(seconds)
+        if len(self._times) > self.window:
+            self._times.pop(0)
+        if len(self._times) < 8:
+            return False
+        med = float(np.median(self._times))
+        if seconds > self.threshold * med:
+            self.flagged += 1
+            return True
+        return False

@@ -52,6 +52,12 @@
 // Ragged edges (Sq or Sk not a multiple of 64) are masked in both kernels,
 // so any Sq <= Sk works.
 //
+// Both kernels also write the row log-sum-exp when given an lse pointer:
+// float32 (B, Sq, H), lse = max + log(sum) of the scaled, masked logits in
+// the natural log, as repro's _flash_fwd_shaped returns it; the training
+// path's backward (flash_attention_bwd.cu) recomputes P = exp(s - lse)
+// from it.  A null pointer leaves the serving launch as it was.
+//
 // Host side: flash_attention_launch picks the kernel for (type, D), builds
 // the TMA maps (cuTensorMapEncodeTiled, reached through
 // cudaGetDriverEntryPoint, so nothing links libcuda), launches on the
@@ -119,8 +125,9 @@ __device__ __forceinline__ float sum16(float x) {
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int Sq,
-                 int Sk, int H, int KV, float scale, int causal, int window) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int Sq, int Sk, int H, int KV,
+                 float scale, int causal, int window) {
   constexpr int LD = D + kPad;
   constexpr int LP = kBK + kPad;
   constexpr int RI = kBQ / 16;        // rows per thread
@@ -241,6 +248,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((long)b * Sq + r) * H + h] = m[i] + logf(den);
 #pragma unroll
     for (int g = 0; g < CG; ++g) {
       kern::store4(ob + (long)r * q_stride + 4 * tx + 64 * g,
@@ -271,8 +280,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                   int KV, float scale_log2, int causal, int window) {
+                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                   int Sq, int Sk, int H, int KV, float scale_log2,
+                   int causal, int window) {
   constexpr int kTile = WgLayout<D>::kTile;
   constexpr int NP = D / 64;           // panels of a tile
   extern __shared__ uint8_t smem_raw[];
@@ -433,6 +443,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (q0 + row >= Sq) continue;
+    // m is in the log2 domain: lse = ln 2 (m + log2 l)
+    if (lse != nullptr && c == 0)
+      lse[((long)b * Sq + q0 + row) * H + h] =
+          (m[r] + log2f(l[r])) * 0.6931471805599453f;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       *reinterpret_cast<uint32_t*>(ob + row * q_stride + 8 * j + 2 * c) =
@@ -465,8 +479,9 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
 
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int B, int Sq, int Sk, int H, int KV, float scale,
-                        int causal, int window, cudaStream_t stream) {
+                        float* lse, int B, int Sq, int Sk, int H, int KV,
+                        float scale, int causal, int window,
+                        cudaStream_t stream) {
   auto kernel = flash_wgmma_kernel<D>;
   constexpr int bytes = WgLayout<D>::kBytes;
   // Set on every launch: the opt-in is per device, and the call is cheap
@@ -480,15 +495,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   dim3 grid(B * H, (Sq + kWgBQ - 1) / kWgBQ);
   kernel<<<grid, kWgThreads, bytes, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KV,
       scale * 1.4426950408889634f, causal, window);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       int B, int Sq, int Sk, int H, int KV, float scale,
-                       int causal, int window, cudaStream_t stream) {
+                       float* lse, int B, int Sq, int Sk, int H, int KV,
+                       float scale, int causal, int window,
+                       cudaStream_t stream) {
   auto kernel = flash_f32_kernel<D>;
   constexpr int bytes = smem_bytes<D>();
   // Set on every launch: the opt-in is per device, and the call is cheap
@@ -499,20 +515,20 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
   kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
-      scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Sk, H,
+      KV, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
-                   void* o, int B, int Sq, int Sk, int H, int KV, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   void* o, float* lse, int B, int Sq, int Sk, int H, int KV,
+                   float scale, int causal, int window, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<D>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal, window,
-                         stream);
+    return launch_f32<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
+                         window, stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
+    return launch_bf16<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
                           window, stream);
   return cudaErrorInvalidValue;
 }
@@ -523,24 +539,26 @@ extern "C" const char* flash_attention_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 on success).
+// dtype: 0 = float32, 1 = bfloat16.  lse: float32 (B, Sq, H) or null.
+// Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int Sq, int Sk, int H, int KV,
                                       int D, float scale, int causal,
-                                      int window, void* stream) {
+                                      int window, void* stream, void* lse) {
   if (Sq == 0 || B * H == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (D) {
     case 64:
-      return launch<64>(dtype, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                        window, s);
+      return launch<64>(dtype, q, k, v, o, l, B, Sq, Sk, H, KV, scale,
+                        causal, window, s);
     case 128:
-      return launch<128>(dtype, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                         window, s);
+      return launch<128>(dtype, q, k, v, o, l, B, Sq, Sk, H, KV, scale,
+                         causal, window, s);
     case 256:
-      return launch<256>(dtype, q, k, v, o, B, Sq, Sk, H, KV, scale, causal,
-                         window, s);
+      return launch<256>(dtype, q, k, v, o, l, B, Sq, Sk, H, KV, scale,
+                         causal, window, s);
     default:
       return cudaErrorInvalidValue;
   }

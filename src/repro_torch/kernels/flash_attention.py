@@ -1,12 +1,23 @@
-"""FlashAttention-2 forward: the Hopper kernel and its plain PyTorch version.
+"""FlashAttention-2, forward and backward: the Hopper kernels, their plain
+PyTorch versions and the autograd Function that pairs them.
 
 :func:`flash_attention` is the port of the Pallas kernel
 ``repro/kernels/flash_attention.py``; its CUDA source is
 ``csrc/flash_attention.cu`` (what it computes, what bounds it and how it is
-laid out are written at the top of that file).  A CPU tensor goes to
-:func:`flash_attention_plain`; a CUDA tensor goes to the kernel, which is
-built at first use, or the call raises.  ``flash_attention.launches``
-counts the kernel launches made.
+laid out are written at the top of that file).  With ``return_lse=True`` it
+also returns the row log-sum-exp, float32 (B, Sq, H), as
+``repro.kernels.ops._flash_fwd_shaped`` does.  :func:`flash_attention_bwd`
+is the port of ``repro.kernels.ops._flash_bwd`` (the XLA backward under
+``flash_attention_xla``'s custom_vjp); its source is
+``csrc/flash_attention_bwd.cu``, deterministic (no atomics), head dims 64
+and 128.  :class:`FlashAttention` is the ``torch.autograd.Function`` of
+the training path: the forward kernel with LSE, then the backward kernel.
+
+A CPU tensor goes to the plain versions; a CUDA tensor goes to the
+kernel, which is built at first use, or the call raises.
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+the kernel launches made (one a call; the backward's call runs its two
+kernels, dq then dk/dv).
 
 :func:`flash_attention_plain` is the counterpart of
 ``repro.kernels.ref.attention``: the whole score matrix in float32, masked
@@ -29,7 +40,8 @@ from . import _build
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)          # the kernel's instances
+HEAD_DIMS = (64, 128, 256)          # the forward kernel's instances
+BWD_HEAD_DIMS = (64, 128)           # the backward kernel's instances
 
 
 def _check(q, k, v):
@@ -51,16 +63,11 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be contiguous")
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: float | None = None):
-    """The plain PyTorch version of :func:`flash_attention`."""
-    _check(q, k, v)
-    _, sq, h, d = q.shape
-    sk = k.shape[1]
-    scale = d ** -0.5 if scale is None else scale
-    rep = h // k.shape[2]
-    k = k.repeat_interleave(rep, dim=2)
-    v = v.repeat_interleave(rep, dim=2)
+def _logits(q, k, causal, window, scale):
+    """Scaled, masked float32 logits (B, H, Sq, Sk), k repeated over the
+    query heads of its group."""
+    sq, sk = q.shape[1], k.shape[1]
+    k = k.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     q_pos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     k_pos = torch.arange(sk, device=q.device)[None, :]
@@ -69,9 +76,22 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
         mask &= k_pos <= q_pos
     if window > 0:
         mask &= k_pos > q_pos - window
-    logits = torch.where(mask, logits, NEG_INF)
+    return torch.where(mask, logits, NEG_INF)
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: float | None = None,
+                          return_lse: bool = False):
+    """The plain PyTorch version of :func:`flash_attention`."""
+    _check(q, k, v)
+    scale = q.shape[3] ** -0.5 if scale is None else scale
+    logits = _logits(q, k, causal, window, scale)
     p = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    v = v.repeat_interleave(q.shape[2] // k.shape[2], dim=2)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(logits, dim=-1).transpose(1, 2).contiguous()
 
 
 @functools.cache
@@ -80,7 +100,7 @@ def _library():
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -88,19 +108,21 @@ def _library():
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale: float | None = None):
+                    scale: float | None = None, return_lse: bool = False):
     """Causal / sliding-window GQA attention.
 
     q: (B, Sq, H, D); k, v: (B, Sk, KV, D), float32 or bfloat16,
     contiguous.  ``window`` > 0 lets each query see only the last
     ``window`` keys; causal offsets put q at the final Sq positions of the
-    Sk-long context.  Returns (B, Sq, H, D) in q's dtype.
+    Sk-long context.  Returns (B, Sq, H, D) in q's dtype and, with
+    ``return_lse``, the row log-sum-exp of the scaled, masked logits,
+    float32 (B, Sq, H).
     """
     _check(q, k, v)
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale)
+                                     scale=scale, return_lse=return_lse)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda (kernel) or cpu "
                          f"(plain version), not {dev.type}")
@@ -113,16 +135,147 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     scale = D ** -0.5 if scale is None else scale
     lib = _library()
     out = torch.empty_like(q)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     with torch.cuda.device(dev):
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             DTYPES[q.dtype], B, Sq, Sk, H, KV, D, float(scale), int(causal),
-            int(window), torch.cuda.current_stream(dev).cuda_stream)
+            int(window), torch.cuda.current_stream(dev).cuda_stream,
+            None if lse is None else lse.data_ptr())
     if err != 0:
         raise RuntimeError(f"flash_attention kernel failed: cudaError {err} "
                            f"({lib.flash_attention_error_string(err).decode()})")
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def _check_bwd(q, k, v, out, lse, dout):
+    _check(q, k, v)
+    B, Sq, H, _ = q.shape
+    for name, x in (("out", out), ("dout", dout)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} is {tuple(x.shape)} {x.dtype} on "
+                             f"{x.device}; q is {tuple(q.shape)} {q.dtype} "
+                             f"on {q.device}")
+    if lse.shape != (B, Sq, H) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be float32 {(B, Sq, H)} on {q.device}; "
+                         f"got {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}")
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
+                              window: int = 0, scale: float | None = None):
+    """The plain PyTorch version of :func:`flash_attention_bwd`: every
+    (B, H, Sq, Sk) matrix in float32 at once, P recomputed from lse, and
+    dk, dv summed over the query heads of each group."""
+    _check_bwd(q, k, v, out, lse, dout)
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    rep = H // KV
+    scale = D ** -0.5 if scale is None else scale
+    p = torch.exp(_logits(q, k, causal, window, scale)
+                  - lse.transpose(1, 2)[..., None])
+    kf = k.float().repeat_interleave(rep, dim=2)
+    vf = v.float().repeat_interleave(rep, dim=2)
+    qf, dof = q.float(), dout.float()
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    delta = (dof * out.float()).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dk = dk.reshape(B, Sk, KV, rep, D).sum(3)
+    dv = dv.reshape(B, Sk, KV, rep, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+@functools.cache
+def _bwd_library():
+    lib = _build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` at (q, k, v),
+    given its output ``out``, its row log-sum-exp ``lse`` (float32
+    (B, Sq, H)) and the output gradient ``dout``; each in its input's
+    dtype, dk and dv summed over the query heads of a group.  All inputs
+    contiguous; head dim 64 or 128 on the card."""
+    _check_bwd(q, k, v, out, lse, dout)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         scale=scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda (kernel) or cpu "
+                         f"(plain version), not {dev.type}")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"the backward kernel takes head_dim in "
+                         f"{BWD_HEAD_DIMS}, not {D}")
+    if Sq > Sk:
+        raise ValueError(f"the kernel needs Sq <= Sk, got {Sq} > {Sk}")
+    if not (out.is_contiguous() and dout.is_contiguous()
+            and lse.is_contiguous()):
+        raise ValueError("out, dout and lse must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v, out, dout)):
+        raise ValueError("the kernel loads 16 bytes at a time: q, k, v, out "
+                         "and dout must start on a 16-byte boundary")
+    scale = D ** -0.5 if scale is None else scale
+    lib = _bwd_library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], B, Sq, Sk, H, KV,
+            D, float(scale), int(causal), int(window),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd kernel failed: cudaError {err} "
+            f"({lib.flash_attention_bwd_error_string(err).decode()})")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash pair as its forward and backward, the
+    counterpart of ``repro.kernels.ops.flash_attention_xla``'s custom_vjp:
+    the forward keeps (q, k, v, out, lse), the backward recomputes P from
+    them.  On CUDA both directions run the kernels (or raise); on the CPU
+    both run the plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
+                                         dout.contiguous(), **ctx.opts)
+        return dq, dk, dv, None, None, None

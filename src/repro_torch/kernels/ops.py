@@ -9,7 +9,10 @@ version, and any other device raises.  So there is no ``impl=`` knob, and
 ``ModelConfig.attention_impl``, kept in the copied dataclass, is not read.
 
     attention(q, k, v, *, causal=True, window=0, scale=None)
-        prefill attention; q (B, Sq, H, D), k, v (B, Sk, KV, D)
+        train / prefill attention; q (B, Sq, H, D), k, v (B, Sk, KV, D).
+        Where autograd records (grad enabled and an input requires grad)
+        it goes through ``FlashAttention``: the forward kernel with LSE,
+        then the backward kernel; otherwise (serving) the forward alone.
     decode_attention(q, k_cache, v_cache, lengths, *, scale=None)
         one new token; q (B, H, D), caches (B, S, KV, D), lengths (B,)
     linear_recurrence(a, b, h0=None)
@@ -17,8 +20,20 @@ version, and any other device raises.  So there is no ``impl=`` knob, and
 """
 from __future__ import annotations
 
+import torch
+
 from .decode_attention import decode_attention
-from .flash_attention import flash_attention as attention
+from .flash_attention import FlashAttention, flash_attention
 from .rglru_scan import linear_recurrence
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              scale: float | None = None):
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, scale)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           scale=scale)
+
 
 __all__ = ["attention", "decode_attention", "linear_recurrence"]

@@ -1,1 +1,1 @@
-"""Entry points of the serving path: step builders and the batch server."""
+"""Entry points: the trainer, the batch server and their step builders."""

@@ -1,5 +1,5 @@
-"""Model assembly: the block pattern unrolled into one list of layers, and
-the train / prefill / decode forward passes.
+"""Model assembly: the block pattern unrolled into one list of layers, the
+train / prefill / decode forward passes, and the training loss.
 
 Counterpart of ``repro.models.transformer``.  JAX stacks each position of
 the block pattern over its ``n_groups`` periods and scans; the port holds
@@ -9,10 +9,22 @@ layers, whose kinds are the pattern's first ones.
 
 Block kinds ``attn``, ``local_attn`` and ``rglru`` are ported; ``moe``,
 ``mlstm`` and ``slstm`` raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+
+Serving and training hold their weights differently.  A serving model
+stores matrices in the compute dtype, frozen (``models/weights.py``).  A
+trainable model (``trainable=True``) holds every parameter as ``repro``
+does, a float32 ``nn.Parameter`` that requires grad, cast to the compute
+dtype at each use, so AdamW updates float32 master weights; its train
+forward recomputes each layer in the backward (``torch.utils.checkpoint``)
+when ``cfg.remat`` is set, as ``repro`` wraps each group in
+``jax.checkpoint``.  Only the attention block (RoPE, the flash pair) and
+the MLP have backward passes on the card; training an RG-LRU layer there
+needs a backward for the recurrence kernel (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ..device import resolve_device
@@ -45,14 +57,14 @@ class _Tree(nn.Module):
     """A nested dictionary of tensors as a module: ``p["attn"]["wq"]``
     reads the same parameter as in ``repro``'s pytree."""
 
-    def __init__(self, tree):
+    def __init__(self, tree, trainable=False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, dict):
-                self.add_module(name, _Tree(value))
+                self.add_module(name, _Tree(value, trainable))
             else:
                 self.register_parameter(
-                    name, nn.Parameter(value, requires_grad=False))
+                    name, nn.Parameter(value, requires_grad=trainable))
 
     def __getitem__(self, name):
         return getattr(self, name)
@@ -64,22 +76,31 @@ class Model(nn.Module):
 
     ``params``: {"embed": (vocab, d), "final_norm": (d,), ["lm_head":
     (d, vocab),] "layers": [one nested dict per layer, repro's names]},
-    already in the storage dtypes of ``models/weights.py``.
+    already in the storage dtypes of ``models/weights.py``, or, with
+    ``trainable``, all in ``param_dtype``: the parameters then require
+    grad.
     """
 
-    def __init__(self, cfg, params):
+    def __init__(self, cfg, params, *, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.kinds = layer_kinds(cfg)
         if len(params["layers"]) != cfg.n_layers:
             raise ValueError(f"{len(params['layers'])} layers for a "
                              f"{cfg.n_layers}-layer config")
-        self.embed = nn.Parameter(params["embed"], requires_grad=False)
+        self.embed = nn.Parameter(params["embed"], requires_grad=trainable)
         self.final_norm = nn.Parameter(params["final_norm"],
-                                       requires_grad=False)
+                                       requires_grad=trainable)
         self.lm_head = (None if cfg.tie_embeddings else
-                        nn.Parameter(params["lm_head"], requires_grad=False))
-        self.layers = nn.ModuleList(_Tree(p) for p in params["layers"])
+                        nn.Parameter(params["lm_head"],
+                                     requires_grad=trainable))
+        self.layers = nn.ModuleList(_Tree(p, trainable)
+                                    for p in params["layers"])
+        pdt = getattr(torch, cfg.param_dtype)
+        bad = {p.dtype for p in self.parameters()} - {pdt}
+        if trainable and bad:
+            raise ValueError(f"a trainable model holds every parameter in "
+                             f"param_dtype {pdt}; got {sorted(map(str, bad))}")
 
     @property
     def device(self) -> torch.device:
@@ -112,8 +133,17 @@ class Model(nn.Module):
         t0 = cache["t"] if cache is not None else 0
         positions = (t0 + torch.arange(S, dtype=torch.int32,
                                        device=tokens.device)).expand(B, S)
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
             apply, window = BLOCKS[kind]
+            if remat:
+                # keep only the layer's input; the backward reruns it
+                x = torch.utils.checkpoint.checkpoint(
+                    lambda x, apply=apply, p=p, w=window(cfg): apply(
+                        cfg, p, x, positions=positions, mode=mode,
+                        window=w)[0],
+                    x, use_reentrant=False)
+                continue
             x, _ = apply(cfg, p, x, positions=positions,
                          cache=None if cache is None else cache["layers"][i],
                          mode=mode, window=window(cfg))
@@ -135,6 +165,50 @@ class Model(nn.Module):
     def decode_step(self, tokens, cache):
         """One new token (B, 1) against the cache."""
         return self.forward(tokens, cache=cache, mode="decode")
+
+
+class _LogZGold(torch.autograd.Function):
+    """(logsumexp, gold logit) of each row of ``logits`` (..., vocab), in
+    float32, with a backward written out so that it is deterministic on
+    CUDA: ``softmax * dlogz`` plus ``dgold`` at each row's label, by an
+    indexed write with exactly one index a row.  (Autograd of ``gather``
+    goes through ``scatter_add_``, which PyTorch lists among CUDA's
+    nondeterministic operations.)"""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        x = logits.float()
+        logz = torch.logsumexp(x, dim=-1)
+        gold = torch.gather(x, -1, labels[..., None].long())[..., 0]
+        ctx.save_for_backward(logits, labels, logz)
+        return logz, gold
+
+    @staticmethod
+    def backward(ctx, dlogz, dgold):
+        logits, labels, logz = ctx.saved_tensors
+        grad = torch.exp(logits.float() - logz[..., None]) * dlogz[..., None]
+        flat = grad.view(-1, grad.shape[-1])
+        rows = torch.arange(flat.shape[0], device=flat.device)
+        flat[rows, labels.reshape(-1).long()] += dgold.reshape(-1)
+        return grad.to(logits.dtype), None
+
+
+def lm_loss(model, batch):
+    """Next-token cross-entropy, the mean over valid positions, plus the
+    1e-4 z-loss (``repro.models.transformer.lm_loss``).  ``batch`` has
+    tokens (B, S), labels (B, S) and an optional mask (B, S).  Returns
+    ``(loss + zloss, {"nll": loss, "zloss": zloss})``, float32 scalars."""
+    logits, _ = model(batch["tokens"], mode="train")
+    logz, gold = _LogZGold.apply(logits, batch["labels"])
+    nll = logz - gold
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(nll)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(nll * mask) / denom
+    # z-loss keeps logits bounded on long runs (Chowdhery et al.)
+    zloss = 1e-4 * torch.sum((logz * mask) ** 2) / denom
+    return loss + zloss, {"nll": loss, "zloss": zloss}
 
 
 def _normal(gen, shape, dev):
@@ -180,23 +254,31 @@ def _init_layer(cfg, kind, gen, dev):
     return p
 
 
-def init(cfg, generator: torch.Generator, device="cuda") -> Model:
+def init(cfg, generator: torch.Generator, device="cuda", *,
+         trainable: bool = False) -> Model:
     """Random weights of ``cfg``'s shapes, drawn as ``repro`` draws them
     (normal x 0.02 matrices, unit norms, zero gate biases, the RG-LRU's
     Lambda ramp) in float32 from ``generator``, which must live on
-    ``device``, then stored in the dtypes of ``models/weights.py``.  The
+    ``device``, then stored in the dtypes of ``models/weights.py`` for
+    serving, or kept in ``param_dtype`` as trainable parameters.  The
     values differ from JAX's: the tests carry JAX's weights across with
     ``weights.from_jax_params`` instead."""
     from .weights import stored   # weights imports this module for Model
     dev = resolve_device(device)
     kinds = layer_kinds(cfg)
-    params = stored(cfg, {
+
+    def keep(tree):
+        # drawn in float32, repro's param_dtype: a trainable model keeps
+        # the draws as its master weights
+        return tree if trainable else stored(cfg, tree)
+
+    params = keep({
         "embed": _normal(generator, (cfg.vocab_size, cfg.d_model), dev),
         "final_norm": torch.ones(cfg.d_model, device=dev)})
     if not cfg.tie_embeddings:
-        params["lm_head"] = stored(cfg, _normal(
+        params["lm_head"] = keep(_normal(
             generator, (cfg.d_model, cfg.vocab_size), dev))
-    # one layer at a time, so only one layer is ever held in float32
-    params["layers"] = [stored(cfg, _init_layer(cfg, kind, generator, dev))
+    # one layer at a time, so a serving model holds one layer in float32
+    params["layers"] = [keep(_init_layer(cfg, kind, generator, dev))
                         for kind in kinds]
-    return Model(cfg, params)
+    return Model(cfg, params, trainable=trainable)

@@ -58,20 +58,25 @@ def test_every_module_imports_without_jax_or_repro():
     assert {"repro_torch.core.policies.solver_backends.refine",
             "repro_torch.core.simulator", "repro_torch.core.online",
             "repro_torch.core.runtime", "repro_torch.core.tonks",
-            "repro_torch.fault.injection"} <= names
+            "repro_torch.fault.injection", "repro_torch.launch.train",
+            "repro_torch.checkpoint.manager", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline"} <= names
 
 
 def test_default_device_raises_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
     from repro_torch import configs, resolve_device
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
     from repro_torch.core import distributions as TD
+    from repro_torch.data import SyntheticLM
     from repro_torch.core import (engine, fitting, market, online, runtime,
                                   scenarios, service, service_kernel,
                                   simulator, tonks)
     from repro_torch.core.policies import checkpointing
     from repro_torch.fault import PreemptionSource
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import transformer, weights
     d = TD.constrained_for()
     cfg = configs.smoke("recurrentgemma-2b")
@@ -126,6 +131,16 @@ def test_default_device_raises_without_a_gpu():
         lambda: simulator.GroundTruth().hazard(1.0),
         lambda: simulator.GroundTruth().cdf(1.0),
         lambda: simulator.GroundTruth().from_uniforms(0.5),
+        lambda: train.train(configs.smoke("smollm-135m"),
+                            TrainConfig(ckpt_dir="unused"), total_steps=1),
+        lambda: train.main(["--arch", "smollm-135m", "--smoke"]),
+        lambda: transformer.init(configs.smoke("smollm-135m"),
+                                 torch.Generator(), trainable=True),
+        lambda: weights.from_jax_params(cfg, {}, trainable=True),
+        lambda: weights.named(cfg, {}),
+        lambda: weights.opt_state_from_jax(cfg, None),
+        lambda: SyntheticLM(vocab_size=8, seq_len=4, global_batch=1).batch(0),
+        lambda: CheckpointManager(directory="unused", dist=d),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

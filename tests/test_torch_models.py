@@ -34,7 +34,8 @@ from repro_torch.models import weights as TW
 
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
-ARCHS = ["recurrentgemma-2b", "llama3.2-1b"]
+ARCHS = ["recurrentgemma-2b", "llama3.2-1b", "smollm-135m", "yi-34b",
+         "deepseek-coder-33b"]
 
 
 def _cfg(arch, dtype="float32"):
