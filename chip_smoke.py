@@ -2,16 +2,31 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --bwd-rounding
 
-Phases, each of which exits nonzero on failure:
+With ``--bwd-rounding`` it runs phase 1 and then only the study of the
+flash backward's rounding: ``flash_attention_bwd.cu`` built four times,
+with ``-DFLASH_BWD_LO`` = 3 (P and dS enter the gradient products as bf16
+hi + lo halves, the kernel's setting), 2 (P rounded once), 1 (dS rounded
+once) and 0 (both rounded once), one nvcc each, all started together; for
+each setting the largest bf16 ulps (where |plain| >= 2^-8 max) and the
+elements outside both bounds of phase 16's rule in its bf16 cases, and at
+the training shape the call's time (CUDA-graph replays), its two kernels'
+device times under torch.profiler and SDPA's backward, as one JSON line
+last.  It checks only that every setting builds and runs.
+
+Phases of the run without arguments, each of which exits nonzero on
+failure:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: compiles the five kernels of ``kernels/csrc/`` (dp_recurrence,
    flash_attention, decode_attention, rglru_scan, flash_attention_bwd)
    with nvcc, one process per source, all started together, and prints what ``-Xptxas -v`` says
-   and, where the toolkit has ``cuobjdump``, the tensor-core instructions
-   in each attention library's SASS (HGMMA for wgmma, HMMA for mma.sync):
-   flash_attention must hold HGMMA and decode_attention HMMA.
+   (no function of flash_attention_bwd may spill registers) and, where the
+   toolkit has ``cuobjdump``, the tensor-core instructions in each
+   attention library's SASS (HGMMA for wgmma, HMMA for mma.sync):
+   flash_attention and flash_attention_bwd (its bf16 kernels) must hold
+   HGMMA and decode_attention HMMA.
 3. Kernel vs plain: ``dp_recurrence`` against ``dp_recurrence_plain`` on the
    same CUDA inputs - 8 default-grid scenarios at J = 60, dt = 1/12 (both
    objectives) and at the main-path size J = 300, dt = 1/60 (both
@@ -162,14 +177,19 @@ Phases, each of which exits nonzero on failure:
    ``flash_attention_bwd_plain`` on the same CUDA inputs (q, k, v, dout
    drawn on the card; out and lse from the forward kernel) at smollm-135m's
    training shape (B 8, S 2048, H 9, KV 3, D 64, causal) in bf16 and
-   float32, window 512, D 128 (H 56, KV 8, S 1024), S 1000 and B 1; each
-   case runs twice and must be bit-identical; the forward's LSE against the
+   float32, window 512, D 128 (H 56, KV 8, S 1024), S 1000 (causal, and
+   in bf16 with no mask) and B 1; each case runs twice and must be
+   bit-identical; the forward's LSE against the
    plain LSE (float32 within 1e-5); the autograd Function against
-   torch.autograd through ``flash_attention_plain`` in float32.
+   torch.autograd through ``flash_attention_plain`` in float32.  bf16 runs
+   the tensor-core kernels (five products on wgmma, P and dS as bf16 hi +
+   lo halves), float32 the CUDA-core ones.
    Tolerances: float32 dq/dk/dv within 1e-5 x max|plain|; bf16 each
    element within 2 bf16 ulps of the plain value or within 2^-8 x
    max|plain| (the plain version computes in float32 and rounds once, the
-   kernel too; near zero the ulp is finer than the sums' rounding).
+   kernel too; near zero the ulp is finer than the sums' rounding), and
+   within 2 bf16 ulps wherever |plain| >= 2^-8 x max|plain| (which P or dS
+   rounded once to bf16 breaks by tens of ulps).
 17. Training path: (a) smollm-135m at full width and depth (30 layers,
    d_model 576, 9 / 3 heads of 64, vocab 49,152, bf16 compute, float32
    master weights, remat) through ``launch.train.train`` on the card:
@@ -191,7 +211,9 @@ Phases, each of which exits nonzero on failure:
    tokens/s, peak device memory, model FLOPs (6 N tokens + attention) and
    their share of the bf16 tensor peak; the flash forward (with LSE) and
    backward at the training shape (CUDA-graph replays) beside their plain
-   versions, bounds and SDPA's forward and backward; the manager's DP
+   versions, bounds (the backward's at 10 D operations a visible pair,
+   beside the 20 D its bf16 kernels issue) and SDPA's forward and
+   backward, and the float32 kernels' CUDA-core bounds; the manager's DP
    solve, one plan's host read of K, a blocking save and a restore of the
    1.6 GB state (medians of 5); one step under torch.profiler.
 
@@ -203,6 +225,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -224,6 +247,9 @@ OPS_PER_CANDIDATE = 20         # f32 operations per (candidate, lane), a
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 FP32_LANES_PER_SM = 128        # FP32 units per Hopper SM, 2 ops per FMA
 BF16_TENSOR_OPS = 989e12       # H100 SXM dense bf16 tensor-core peak
+BWD_ISSUED_OPS_PER_PAIR = 20   # x D: the bf16 flash backward's tensor-core
+                               # work a visible pair (S and dP in both of its
+                               # kernels, dQ, dK, dV with P and dS as hi + lo)
 KERNELS = ("dp_recurrence", "flash_attention", "decode_attention",
            "rglru_scan", "flash_attention_bwd")
 
@@ -289,6 +315,20 @@ TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ = "smollm-135m", 8, 2048
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_SIM_H, TRAIN_PREEMPT_SEED = 30, 10, 0.05, 2
 # the replay check (phase 17b): 3 layers at full width, 40 steps of 8 x 512
 REPLAY_STEPS, REPLAY_SEQ = 40, 512
+# phase 16's cases: label, B, S, H, KV, D, window, causal, dtype
+BWD_CASES = (
+    ("smollm train", TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, 0, True, "bf16"),
+    ("smollm train float32", TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, 0, True,
+     "f32"),
+    ("window 512", 2, TRAIN_SEQ, 9, 3, 64, 512, True, "bf16"),
+    ("window 512 float32", 2, TRAIN_SEQ, 9, 3, 64, 512, True, "f32"),
+    ("D=128", 2, 1024, 56, 8, 128, 0, True, "bf16"),
+    ("D=128 float32", 2, 1024, 56, 8, 128, 0, True, "f32"),
+    ("S=1000", 2, 1000, 9, 3, 64, 0, True, "bf16"),
+    ("S=1000 float32", 2, 1000, 9, 3, 64, 0, True, "f32"),
+    ("B=1", 1, TRAIN_SEQ, 9, 3, 64, 0, True, "bf16"),
+    ("S=1000 not causal", 2, 1000, 9, 3, 64, 0, False, "bf16"),
+)
 RT_CONFIG = dict(job_steps=J_MAIN, grid_dt=DT_MAIN, delta_steps=DELTA,
                  n_sweeps=N_SWEEPS, warm_sweeps=2, window=256,
                  refit_every=64, min_samples=64, regret_trials=256,
@@ -1804,25 +1844,38 @@ def runtime_phase(torch, dp_recurrence, dp_recurrence_plain, smi):
 # the training slice
 # ---------------------------------------------------------------------------
 
+def bwd_errors(torch, got, want):
+    """max|got - want|, max|want|, and for bf16 the number of elements
+    beyond both 2 bf16 ulps of the plain value and 2^-8 x max|plain|, and
+    the largest error in bf16 ulps where |plain| >= 2^-8 x max|plain|."""
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    err, top = float(diff.max()), float(w.abs().max())
+    mag = w.abs().clamp_min(2.0 ** -133)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    bad = int(((diff > 2 * ulp) & (diff > 2.0 ** -8 * top)).sum())
+    big = w.abs() >= 2.0 ** -8 * top
+    return err, top, bad, float((diff / ulp)[big].max())
+
+
 def bwd_agree(torch, label, got, want):
     """Hold one gradient of the backward kernel to the plain version's:
     float32 within 1e-5 x max|plain|; bf16 each element within 2 bf16 ulps
     of the plain value or within 2^-8 x max|plain| (near zero, where the
-    ulp is tinier than the sums' rounding).  Returns max|got - want|."""
-    g, w = got.float(), want.float()
-    diff = (g - w).abs()
-    err, top = float(diff.max()), float(w.abs().max())
+    ulp is tinier than the sums' rounding), and within 2 bf16 ulps wherever
+    |plain| >= 2^-8 x max|plain| (where P or dS rounded once to bf16, not
+    passed as hi + lo halves, moves elements by tens of ulps).  Returns
+    max|got - want|."""
+    err, top, bad, ulps = bwd_errors(torch, got, want)
     if want.dtype == torch.bfloat16:
-        mag = w.abs().clamp_min(2.0 ** -133)
-        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        bad = int(((diff > 2 * ulp) & (diff > 2.0 ** -8 * top)).sum())
-        big = w.abs() >= 2.0 ** -8 * top
-        ulps = float((diff / ulp)[big].max())
         print(f"[flash-bwd] {label}: max|d| = {err:.3e} (max|plain| "
               f"{top:.3e}); {ulps:.2f} bf16 ulps at most where |plain| >= "
-              f"2^-8 max; {bad} elements outside both bounds (need 0)")
+              f"2^-8 max (need <= 2); {bad} elements outside both bounds "
+              f"(need 0)")
         check(bad == 0, f"{label}: {bad} elements beyond 2 bf16 ulps and "
                         f"2^-8 x max|plain|")
+        check(ulps <= 2.0, f"{label}: {ulps} bf16 ulps where |plain| >= "
+                           f"2^-8 x max|plain|")
     else:
         print(f"[flash-bwd] {label}: max|d| = {err:.3e} = "
               f"{err / max(top, 1e-30):.3e} x max|plain| (need <= 1e-5)")
@@ -1846,36 +1899,27 @@ def flash_bwd_vs_plain(torch):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     worst, main = 0.0, None
-    cases = [
-        # label, B, S, H, KV, D, window, dtype
-        ("smollm train", TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, 0, bf16),
-        ("smollm train float32", TRAIN_BATCH, TRAIN_SEQ, 9, 3, 64, 0, f32),
-        ("window 512", 2, TRAIN_SEQ, 9, 3, 64, 512, bf16),
-        ("window 512 float32", 2, TRAIN_SEQ, 9, 3, 64, 512, f32),
-        ("D=128", 2, 1024, 56, 8, 128, 0, bf16),
-        ("D=128 float32", 2, 1024, 56, 8, 128, 0, f32),
-        ("S=1000", 2, 1000, 9, 3, 64, 0, bf16),
-        ("S=1000 float32", 2, 1000, 9, 3, 64, 0, f32),
-        ("B=1", 1, TRAIN_SEQ, 9, 3, 64, 0, bf16),
-    ]
-    for label, B, S, H, KV, D, window, dt in cases:
+    for label, B, S, H, KV, D, window, causal, dt in BWD_CASES:
+        dt = {"bf16": bf16, "f32": f32}[dt]
         q = normal(B, S, H, D, dtype=dt)
         k, v = normal(B, S, KV, D, dtype=dt), normal(B, S, KV, D, dtype=dt)
         dout = normal(B, S, H, D, dtype=dt)
-        out, lse = flash_attention(q, k, v, window=window, return_lse=True)
-        _, lse_plain = flash_attention_plain(q, k, v, window=window,
-                                             return_lse=True)
+        opts = dict(causal=causal, window=window)
+        out, lse = flash_attention(q, k, v, return_lse=True, **opts)
+        _, lse_plain = flash_attention_plain(q, k, v, return_lse=True,
+                                             **opts)
         d_lse = float((lse - lse_plain).abs().max())
         print(f"[flash-bwd] {label} {tuple(q.shape)} KV {KV} window "
-              f"{window} {dt}: forward LSE max|d| = {d_lse:.3e}"
+              f"{window} causal {causal} {dt}: forward LSE max|d| = "
+              f"{d_lse:.3e}"
               + (" (need <= 1e-5)" if dt == f32 else ""))
         if dt == f32:
             check(d_lse <= 1e-5, f"{label}: LSE differs by {d_lse}")
         args = (q, k, v, out, lse, dout)
-        got = flash_attention_bwd(*args, window=window)
-        again = flash_attention_bwd(*args, window=window)
+        got = flash_attention_bwd(*args, **opts)
+        again = flash_attention_bwd(*args, **opts)
         torch.cuda.synchronize()
-        want = flash_attention_bwd_plain(*args, window=window)
+        want = flash_attention_bwd_plain(*args, **opts)
         same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
         print(f"[flash-bwd] {label}: two runs bit-identical {same}")
         check(same, f"{label}: the backward kernel is not deterministic")
@@ -1901,6 +1945,93 @@ def flash_bwd_vs_plain(torch):
                          f"forward {name}", g_, w_)
     torch.cuda.empty_cache()
     return worst, main
+
+
+def bwd_rounding_study(torch, smi):
+    """``--bwd-rounding``: phase 16's bf16 cases and the training shape's
+    timing for each FLASH_BWD_LO setting of flash_attention_bwd.cu (see
+    the module docstring).  Returns the rows it prints as JSON."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as FA
+    settings = {3: "P and dS as hi + lo", 2: "P rounded once",
+                1: "dS rounded once", 0: "P and dS rounded once"}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(settings)) as pool:
+        built = dict(zip(settings, pool.map(
+            lambda n: _build.build("flash_attention_bwd",
+                                   (f"-DFLASH_BWD_LO={n}",)), settings)))
+    print(f"[bwd-rounding] built {len(built)} settings in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for n, (_, log) in built.items():
+        spills = [line.strip() for line in log.splitlines()
+                  if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+        print(f"[bwd-rounding] FLASH_BWD_LO={n} spills: {spills or 'none'}")
+    libs = {n: FA.bind_bwd(ctypes.CDLL(str(path)))
+            for n, (path, _) in built.items()}
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    cases = []
+    for label, B, S, H, KV, D, window, causal, dt in BWD_CASES:
+        if dt != "bf16":
+            continue
+        q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda")
+                         .bfloat16() for shape in ((B, S, H, D), (B, S, KV, D),
+                                                   (B, S, KV, D), (B, S, H, D)))
+        opts = dict(causal=causal, window=window)
+        out, lse = FA.flash_attention(q, k, v, return_lse=True, **opts)
+        args = (q, k, v, out, lse, dout)
+        cases.append((label, args, opts,
+                      FA.flash_attention_bwd_plain(*args, **opts)))
+    (q, k, v, out, lse, dout), opts = cases[0][1], cases[0][2]
+    check(cases[0][0] == "smollm train", "the training shape comes first")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    sdpa_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True))
+    del lib_out
+
+    rows, real = [], FA._bwd_library
+    try:
+        for n, lib in libs.items():
+            FA._bwd_library = lambda lib=lib: lib
+            row = {"FLASH_BWD_LO": n, "rounding": settings[n], "cases": {}}
+            for label, args, copts, want in cases:
+                got = FA.flash_attention_bwd(*args, **copts)
+                errs = {}
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    _, _, bad, ulps = bwd_errors(torch, g, w)
+                    errs[name] = {"ulps": ulps, "outside_both": bad}
+                row["cases"][label] = errs
+                print(f"[bwd-rounding] FLASH_BWD_LO={n} {label}: " + ", ".join(
+                    f"{k_} {e['ulps']:.2f} ulps / {e['outside_both']} outside"
+                    for k_, e in errs.items()))
+
+            def call():
+                FA.flash_attention_bwd(q, k, v, out, lse, dout, **opts)
+
+            row["ms"] = graph_ms(torch, [call] * 3)
+            reps = 5
+            _, _, prof = profile_window(
+                torch, lambda: [call() for _ in range(reps)])
+            for kname in ("dq_wgmma_kernel", "dkdv_wgmma_kernel"):
+                row[f"{kname}_ms"] = sum(
+                    ms for name, ms, _ in prof if kname in name) / reps
+            row["sdpa_bwd_ms"] = sdpa_ms
+            print(f"[bwd-rounding] FLASH_BWD_LO={n} ({settings[n]}) at "
+                  f"{tuple(q.shape)}: {row['ms']:.4f} ms a call (profiler: "
+                  f"dq kernel {row['dq_wgmma_kernel_ms']:.4f} ms, dk/dv "
+                  f"kernel {row['dkdv_wgmma_kernel_ms']:.4f} ms); SDPA "
+                  f"backward {sdpa_ms:.4f} ms; card {smi}")
+            rows.append(row)
+    finally:
+        FA._bwd_library = real
+    return rows
 
 
 def dir_bytes(path):
@@ -2187,9 +2318,12 @@ def training_timing(torch, bwd_inputs, smi, work):
             lib_out, (qt, kt, vt), dout_t, retain_graph=True)),
         "ops": 10 * D * pairs * B * H,
         "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4}
+    # the float32 kernels' arithmetic on the CUDA cores: the forward's 4 D a
+    # pair, the backward's 14 D (S and dP in both of its kernels)
     fwd["fp32_bound_ms"] = fwd["ops"] / fp32_peak_ops(torch)[0] * 1e3
     bwd["fp32_bound_ms"] = 14 * D * pairs * B * H \
         / fp32_peak_ops(torch)[0] * 1e3
+    issued = BWD_ISSUED_OPS_PER_PAIR * D * pairs * B * H
     for name, r in (("flash_attention (train, with LSE)", fwd),
                     ("flash_attention_bwd", bwd)):
         t_ops = r["ops"] / BF16_TENSOR_OPS * 1e3
@@ -2199,8 +2333,13 @@ def training_timing(torch, bwd_inputs, smi, work):
         print(f"[timing] {name} at {tuple(q.shape)} KV {KV}: {r['ms']:.4f} "
               f"ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
-              f"{r['ops']:.4g} ops, {r['bytes']:.4g} B); CUDA-core float32 "
-              f"bound of its arithmetic {r['fp32_bound_ms']:.4f} ms")
+              f"{r['ops']:.4g} ops, {r['bytes']:.4g} B); the float32 "
+              f"kernel's CUDA-core bound {r['fp32_bound_ms']:.4f} ms")
+    print(f"[timing] flash_attention_bwd bf16 issues "
+          f"{BWD_ISSUED_OPS_PER_PAIR} D tensor-core operations a "
+          f"visible pair ({issued:.4g}, {issued / BF16_TENSOR_OPS * 1e3:.4f}"
+          f" ms at the bf16 tensor peak) against the bound's 10 D; share "
+          f"of bound {bwd['bound_ms'] / bwd['ms']:.2%}")
     timing["flash_fwd_ms"], timing["flash_bwd_ms"] = fwd["ms"], bwd["ms"]
     del lib_out
 
@@ -2268,6 +2407,12 @@ def main() -> int:
     print(f"[device] torch: {device_name}; count {torch.cuda.device_count()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
+    if sys.argv[1:] == ["--bwd-rounding"]:
+        rows = bwd_rounding_study(torch, smi)
+        print(json.dumps({"bwd_rounding": rows, "card": smi}))
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}: the only "
+                            f"option is --bwd-rounding")
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -2277,8 +2422,13 @@ def main() -> int:
     for kname, (_, log) in built.items():
         for line in log.splitlines():
             print(f"[build] {kname}: {line}")
+    spills = [line.strip() for line in
+              built["flash_attention_bwd"][1].splitlines()
+              if re.search(r"[1-9]\d* bytes spill (stores|loads)", line)]
+    check(not spills, f"flash_attention_bwd spills registers: {spills}")
     for kname, op in (("flash_attention", "HGMMA"), ("decode_attention",
-                                                     "HMMA")):
+                                                     "HMMA"),
+                      ("flash_attention_bwd", "HGMMA")):
         counts = tensor_core_ops(built[kname][0])
         print(f"[build] {kname} SASS tensor-core instructions: "
               f"{counts if counts is not None else 'no cuobjdump'}")

@@ -45,8 +45,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 EXACT_ROUNDING = {"dp_recurrence", "rglru_scan"}
 
 
-def flags(name: str) -> tuple[str, ...]:
-    return NVCC_FLAGS + (("-fmad=false",) if name in EXACT_ROUNDING else ())
+def flags(name: str, extra: tuple[str, ...] = ()) -> tuple[str, ...]:
+    return (NVCC_FLAGS + (("-fmad=false",) if name in EXACT_ROUNDING else ())
+            + tuple(extra))
 
 
 def _nvcc() -> str:
@@ -58,29 +59,32 @@ def _nvcc() -> str:
                        "use and need the CUDA toolkit (CUDA_HOME or PATH)")
 
 
-def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+def library_path(name: str, extra: tuple[str, ...] = ()) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` (with the further
+    nvcc flags ``extra``, such as ``-D`` settings) lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(flags(name)).encode())
+    h.update(" ".join(flags(name, extra)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_many(names) -> dict[str, tuple[Path, str]]:
+def build_many(names, extra: tuple[str, ...] = ()
+               ) -> dict[str, tuple[Path, str]]:
     """Compile each ``csrc/<name>.cu`` whose library is not built yet, one
-    ``nvcc`` process per source, all started together.  Returns, for each
-    name, the library's path and the compiler's output ("" when the
-    library was already there)."""
+    ``nvcc`` process per source, all started together, each with the
+    further flags ``extra``.  Returns, for each name, the library's path and
+    the compiler's output ("" when the library was already there)."""
     out, procs = {}, {}
     for name in dict.fromkeys(names):
-        path = library_path(name)
+        path = library_path(name, extra)
         if path.exists():
             out[name] = (path, "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *flags(name, extra), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs[name] = (path, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -97,11 +101,11 @@ def build_many(names) -> dict[str, tuple[Path, str]]:
     return out
 
 
-def build(name: str) -> tuple[Path, str]:
-    """Compile ``csrc/<name>.cu`` unless its library is already built.
-    Returns the library's path and the compiler's output ("" when the
-    library was already there)."""
-    return build_many([name])[name]
+def build(name: str, extra: tuple[str, ...] = ()) -> tuple[Path, str]:
+    """Compile ``csrc/<name>.cu`` (with the further flags ``extra``) unless
+    its library is already built.  Returns the library's path and the
+    compiler's output ("" when the library was already there)."""
+    return build_many([name], extra)[name]
 
 
 @functools.cache

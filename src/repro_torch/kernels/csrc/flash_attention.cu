@@ -458,25 +458,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---- host side -------------------------------------------------------------
 
-// The TMA map of a (B, S, NH, D) bf16 tensor, in boxes of 64 rows of one
-// head by 64 columns, swizzled by 128 bytes.
-bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int NH,
-                int D) {
-  hop::EncodeTiledFn encode = hop::encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
-                                 (cuuint64_t)S * NH * D * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int Sq, int Sk, int H, int KV,
@@ -490,8 +471,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, B, Sq, H, D) || !tensor_map(&tk, k, B, Sk, KV, D) ||
-      !tensor_map(&tv, v, B, Sk, KV, D))
+  if (!hop::tensor_map_bshd(&tq, q, B, Sq, H, D) ||
+      !hop::tensor_map_bshd(&tk, k, B, Sk, KV, D) ||
+      !hop::tensor_map_bshd(&tv, v, B, Sk, KV, D))
     return cudaErrorInvalidValue;
   dim3 grid(B * H, (Sq + kWgBQ - 1) / kWgBQ);
   kernel<<<grid, kWgThreads, bytes, stream>>>(

@@ -372,4 +372,24 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The TMA map of a contiguous (B, S, NH, D) bf16 tensor, in boxes of 64
+// rows of one head by 64 columns, swizzled by 128 bytes: the layout of the
+// shared-memory tiles above, one panel a box.  Rows past S arrive as zeros.
+inline bool tensor_map_bshd(CUtensorMap* map, const void* ptr, int B, int S,
+                            int NH, int D) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)NH, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)NH * D * 2,
+                                 (cuuint64_t)S * NH * D * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 }  // namespace hop

@@ -9,9 +9,13 @@ also returns the row log-sum-exp, float32 (B, Sq, H), as
 ``repro.kernels.ops._flash_fwd_shaped`` does.  :func:`flash_attention_bwd`
 is the port of ``repro.kernels.ops._flash_bwd`` (the XLA backward under
 ``flash_attention_xla``'s custom_vjp); its source is
-``csrc/flash_attention_bwd.cu``, deterministic (no atomics), head dims 64
-and 128.  :class:`FlashAttention` is the ``torch.autograd.Function`` of
-the training path: the forward kernel with LSE, then the backward kernel.
+``csrc/flash_attention_bwd.cu``: two kernels (dq, then dk and dv summed
+over each GQA group inside one block), deterministic (no atomics), head
+dims 64 and 128.  In bfloat16 they run their five products on the tensor
+cores (wgmma fed by TMA), P and dS passed as bf16 hi + lo halves; in
+float32 they stay on the CUDA cores in full float32.  :class:`FlashAttention`
+is the ``torch.autograd.Function`` of the training path: the forward
+kernel with LSE, then the backward kernel.
 
 A CPU tensor goes to the plain versions; a CUDA tensor goes to the
 kernel, which is built at first use, or the call raises.
@@ -27,7 +31,8 @@ rounding: about 1e-5 in float32, and within a bf16 ulp or two of the
 output in bfloat16, where the kernel runs both products on the tensor
 cores with bf16 operands and float sums, P split into bf16 hi + lo halves
 (the rounding is rehearsed on the CPU in
-``tests/test_torch_attention_kernels.py``).
+``tests/test_torch_attention_kernels.py``; the backward's, with P and dS
+split, in ``tests/test_torch_flash_bwd.py``).
 """
 from __future__ import annotations
 
@@ -194,9 +199,9 @@ def flash_attention_bwd_plain(q, k, v, out, lse, dout, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-@functools.cache
-def _bwd_library():
-    lib = _build.load("flash_attention_bwd")
+def bind_bwd(lib):
+    """Declare the C interface of a library built from
+    ``csrc/flash_attention_bwd.cu``; returns ``lib``."""
     fn = lib.flash_attention_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -205,6 +210,11 @@ def _bwd_library():
     lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _bwd_library():
+    return bind_bwd(_build.load("flash_attention_bwd"))
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -239,11 +249,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     scale = D ** -0.5 if scale is None else scale
     lib = _bwd_library()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, Sq, H), dtype=torch.float32, device=dev)
+    # filled by the call: delta (B, Sq, H) for the float32 kernels; lse and
+    # delta, each (B, H, Sq rounded up to a 64-query tile), for the bf16 ones
+    scratch = torch.empty(2 * B * H * (-(-Sq // 64) * 64),
+                          dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), dout.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype], B, Sq, Sk, H, KV,
             D, float(scale), int(causal), int(window),
             torch.cuda.current_stream(dev).cuda_stream)
