@@ -216,6 +216,30 @@ failure:
    backward, and the float32 kernels' CUDA-core bounds; the manager's DP
    solve, one plan's host read of K, a blocking save and a restore of the
    1.6 GB state (medians of 5); one step under torch.profiler.
+18. Sweep modes and Fig. 7: (a) phase 4's sweep in ``mode="serial"``,
+   ``"grouped"`` and ``"batched"``, every DP launch recorded, the launch
+   counter reset before each mode and read after.  Checks: 8, 1 and 1
+   launches; each serial (1, 301, 1441) table (V and K) bit-identical to
+   the batched (8, 301, 1441) solve's scenario, the grouped solve equal to
+   it; the 48 rows of the three modes equal in every field; the host
+   reference loop ``checkpointing.simulate_makespan`` bit-identical to the
+   card's executor on the serial mode's pool (scenario 0, seed 0, each
+   policy, the first 500 trials).  (b) ``benchmarks/fig7_checkpointing.py``
+   through the port's API: ``checkpointing.solve`` of
+   ``constrained_for("n1-highcpu-16")`` at J = 720, dt = 1/60 (one launch
+   of (1, 721, 1441), held to ``dp_recurrence_plain`` at phase 3's
+   contract); the 5 h schedule beside the paper's 15/28/38/59/128 min;
+   Fig. 7a (a 4 h job from ages 0, 2, 6, 10, 15 h; DP and Young-Daly at
+   MTTF 1 h) and Fig. 7b (1, 2, 4, 6, 8 h jobs from age 0; DP, Young-Daly,
+   none) through ``engine.simulate_makespan_engine`` (600 trials, seed
+   17).  Checks: every makespan finite; each DP cell's mean within 5 % of
+   the table's V at (J, age); each cell bit-identical to
+   ``simulate_makespan`` and to the CPU executor on the same pool (printed
+   too: in how many cells a pool drawn on the CPU equals the card's).
+   Prints each cell's overhead and Young-Daly's model-predicted overhead
+   at MTTF 1 h beside the paper's "> 25 %".  (c) Timing: each mode's wall
+   ms (median of 3 after a warm-up, ending in a synchronize), the S = 1
+   and S = 8 solves at J = 300 and Fig. 7's solve (CUDA events).
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -329,6 +353,15 @@ BWD_CASES = (
     ("B=1", 1, TRAIN_SEQ, 9, 3, 64, 0, True, "bf16"),
     ("S=1000 not causal", 2, 1000, 9, 3, 64, 0, False, "bf16"),
 )
+# the sweep modes and Fig. 7 (phase 18): the main path's sweep in each
+# mode, and benchmarks/fig7_checkpointing.py's setup (n1-highcpu-16, DP
+# (1, 721, 1441), 600 trials, seed 17, Young-Daly at MTTF = 1 h)
+MODE_LAUNCHES = {"serial": 8, "grouped": 1, "batched": 1}
+REF_TRIALS = 500               # trials the host reference loop replays
+FIG7_J, FIG7_TRIALS, FIG7_SEED = 720, 600, 17
+FIG7_AGES = (0.0, 2.0, 6.0, 10.0, 15.0)   # Fig. 7a: a 4 h job from each age
+FIG7_HOURS = (1, 2, 4, 6, 8)              # Fig. 7b: jobs from age 0
+FIG7_PAPER_SCHEDULE = (15, 28, 38, 59, 128)
 RT_CONFIG = dict(job_steps=J_MAIN, grid_dt=DT_MAIN, delta_steps=DELTA,
                  n_sweeps=N_SWEEPS, warm_sweeps=2, window=256,
                  refit_every=64, min_samples=64, regret_trials=256,
@@ -2379,6 +2412,242 @@ def training_timing(torch, bwd_inputs, smi, work):
     return {"flash_attention": fwd, "flash_attention_bwd": bwd}
 
 
+# ---------------------------------------------------------------------------
+# the sweep modes and Fig. 7
+# ---------------------------------------------------------------------------
+
+def modes_phase(torch, dp_recurrence, sweep_kw):
+    """Phase 18a: the main path's sweep in each mode, every DP launch
+    recorded; the serial mode's tables against the batched solve's, the
+    rows of the three modes, and the host reference loop against the card's
+    executor on the serial mode's pool.  Returns the launches per mode."""
+    from repro_torch.core import engine, scenarios
+    from repro_torch.core.policies import checkpointing
+    from repro_torch.core.policies import young_daly as yd
+    grid = scenarios.default_grid()
+    rows, launches, recs = {}, {}, {}
+    for mode in MODE_LAUNCHES:
+        dp_recurrence.launches = 0
+        with recorded_launches(dp_recurrence) as rec:
+            rows[mode] = scenarios.sweep_checkpointing(grid, mode=mode,
+                                                       **sweep_kw)
+        torch.cuda.synchronize()
+        launches[mode], recs[mode] = dp_recurrence.launches, rec.calls
+    print(f"[modes] dp_recurrence launches {launches} (need "
+          f"{MODE_LAUNCHES})")
+    check(launches == MODE_LAUNCHES, f"sweep modes: launches {launches}")
+    V8, K8 = recs["batched"][0][2]
+    check(tuple(V8.shape[:2]) == (len(grid), J_MAIN + 1),
+          f"batched solve shape {tuple(V8.shape)}")
+    same = [bool(torch.equal(V[0], V8[s])) and bool(torch.equal(K[0], K8[s]))
+            for s, (_, _, (V, K)) in enumerate(recs["serial"])]
+    Vg, Kg = recs["grouped"][0][2]
+    print(f"[modes] serial {tuple(recs['serial'][0][2][0].shape)} tables "
+          f"bit-identical to the batched {tuple(V8.shape)} solve's "
+          f"scenario: {same}; grouped "
+          f"solve equal {bool(torch.equal(Vg, V8) and torch.equal(Kg, K8))}")
+    check(all(same), "sweep modes: a serial table differs from the batched "
+                     "solve's")
+    check(bool(torch.equal(Vg, V8)) and bool(torch.equal(Kg, K8)),
+          "sweep modes: the grouped solve differs from the batched one")
+    for mode in ("serial", "grouped"):
+        check(same_rows(rows[mode], rows["batched"]),
+              f"sweep modes: {mode} rows differ from the batched rows")
+    check(all(np.isfinite(r["makespan_mean"]) and r["unfinished_frac"] == 0
+              for r in rows["batched"]), "sweep modes: unfinished rows")
+    print(f"[modes] {len(rows['batched'])} rows identical in every field "
+          f"across serial, grouped and batched")
+
+    # the host reference loop on the serial mode's own pool (scenario 0,
+    # seed 0), its first REF_TRIALS trials
+    dist = grid[0].dist()
+    V0, K0 = (x[0] for x in recs["serial"][0][2])
+    tab0 = checkpointing.DPTables(V=V0, K=K0, grid_dt=DT_MAIN,
+                                  delta_steps=DELTA, restart_overhead=0.0,
+                                  horizon_idx=V0.shape[1] - 1)
+    first, pool = engine.draw_lifetime_pool(
+        checkpointing.model_lifetimes_fn(dist, device="cuda"), N_TRIALS,
+        max_restarts=MAX_RESTARTS, seed=SEEDS[0])
+    tau = float(yd.interval(DELTA * DT_MAIN, yd.mttf_from_initial_rate(dist)))
+    tau_steps = max(1, int(round(tau / DT_MAIN)))
+    policies = {
+        "dp": (engine.dp_policy_table(tab0),
+               checkpointing.dp_policy_fn(tab0)),
+        "young_daly": (engine.young_daly_policy_table(tau_steps, J_MAIN),
+                       checkpointing.young_daly_policy_fn(tau, DT_MAIN)),
+        "none": (engine.no_checkpoint_policy_table(J_MAIN),
+                 checkpointing.no_checkpoint_policy_fn())}
+    kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA, max_restarts=MAX_RESTARTS)
+    for name, (table, fn) in policies.items():
+        mk = engine.simulate_makespan_batch(table, J_MAIN, first=first,
+                                            pool=pool, unfinished="partial",
+                                            device="cuda", **kw)
+        ref = checkpointing.simulate_makespan(
+            fn, None, J_MAIN, pool=pool[:REF_TRIALS], first=first[:REF_TRIALS],
+            **kw)
+        same = np.array_equal(mk[:REF_TRIALS], ref)
+        print(f"[modes] {grid[0].name} seed {SEEDS[0]} {name}: card executor "
+              f"bit-identical to checkpointing.simulate_makespan on "
+              f"{REF_TRIALS} trials {same} (mean {ref.mean():.6f} h)")
+        check(same, f"sweep modes: {name} makespans differ from the host "
+                    f"reference loop")
+    return launches
+
+
+def fig7_phase(torch, dp_recurrence, dp_recurrence_plain):
+    """Phase 18b: Fig. 7 through the port's API (after
+    ``benchmarks/fig7_checkpointing.py``): the J = 720 solve against the
+    plain version, the schedule, and every Fig. 7a / 7b cell through
+    ``simulate_makespan_engine`` against the host reference loop and the
+    CPU executor.  Returns the DP launches of the solve."""
+    from repro_torch.core import distributions, engine
+    from repro_torch.core.policies import checkpointing
+    from repro_torch.core.policies import young_daly as yd
+    dist = distributions.constrained_for("n1-highcpu-16")
+    solve_kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA, n_sweeps=N_SWEEPS,
+                    device="cuda")
+    dp_recurrence.launches = 0
+    with recorded_launches(dp_recurrence) as rec:
+        tables = checkpointing.solve(dist, FIG7_J, **solve_kw)
+    torch.cuda.synchronize()
+    n = dp_recurrence.launches
+    args, kw, (Vk, Kk) = rec.calls[0]
+    Vp, Kp = dp_recurrence_plain(*args, **kw)
+    torch.cuda.synchronize()
+    max_dv = float((Vk - Vp).abs().max())
+    k_agree = float((Kk == Kp).double().mean())
+    bits = bool(torch.equal(Vk, Vp)) and bool(torch.equal(Kk, Kp))
+    print(f"[fig7] solve: {n} launch(es) of shape {tuple(Vk.shape)}; against "
+          f"dp_recurrence_plain max|dV| = {max_dv:.3e}, K agreement = "
+          f"{k_agree:.6f} (need V allclose 1e-5 and K >= 0.999), "
+          f"bit-identical {bits}")
+    T = int(round(distributions.DEADLINE_HOURS / DT_MAIN)) + 1
+    check(n == 1 and tuple(Vk.shape) == (1, FIG7_J + 1, T),
+          f"fig7: {n} launches of shape {tuple(Vk.shape)}")
+    check(bool(torch.allclose(Vk, Vp, rtol=1e-5, atol=1e-5)),
+          "fig7: V differs from the plain version beyond 1e-5")
+    check(k_agree >= 0.999, f"fig7: K agreement {k_agree} < 0.999")
+    sched = checkpointing.extract_schedule(tables, round(5 / DT_MAIN), 0)
+    print(f"[fig7] DP schedule of a 5 h job from age 0, minutes: "
+          f"{'/'.join(str(round(i * DT_MAIN * 60)) for i in sched)} (paper "
+          f"{'/'.join(map(str, FIG7_PAPER_SCHEDULE))})")
+
+    lf = checkpointing.model_lifetimes_fn(dist, device="cuda")
+    lf_cpu = checkpointing.model_lifetimes_fn(dist, device="cpu")
+    tau = float(yd.interval(DT_MAIN, 1.0))
+    tau_steps = max(1, int(round(tau / DT_MAIN)))
+    pol = {"dp": (engine.dp_policy_table(tables),
+                  checkpointing.dp_policy_fn(tables)),
+           "young_daly": (engine.young_daly_policy_table(tau_steps, FIG7_J),
+                          checkpointing.young_daly_policy_fn(tau, DT_MAIN)),
+           "none": (engine.no_checkpoint_policy_table(FIG7_J),
+                    checkpointing.no_checkpoint_policy_fn())}
+    j4 = round(4 / DT_MAIN)
+    cells = ([("7a", age, j4, p) for age in FIG7_AGES
+              for p in ("dp", "young_daly")]
+             + [("7b", 0.0, round(h / DT_MAIN), p) for h in FIG7_HOURS
+                for p in ("dp", "young_daly", "none")])
+    ex_kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA,
+                 max_restarts=MAX_RESTARTS)
+    overhead, worst, pools_equal = {}, 0.0, 0
+    for fig, age, J, p in cells:
+        table, fn = pol[p]
+        mk = engine.simulate_makespan_engine(
+            table, lf, J, start_age=age, n_trials=FIG7_TRIALS, seed=FIG7_SEED,
+            device="cuda", **ex_kw)
+        first, pool = engine.draw_lifetime_pool(
+            lf, FIG7_TRIALS, max_restarts=MAX_RESTARTS, seed=FIG7_SEED,
+            start_age=age)
+        ref = checkpointing.simulate_makespan(fn, None, J, start_age=age,
+                                              pool=pool, first=first, **ex_kw)
+        cpu = engine.simulate_makespan_batch(
+            table, J, first=first.cpu(), pool=pool.cpu(), start_age=age,
+            device="cpu", **ex_kw)
+        label = f"fig{fig} {p} age {age:g} h, {J * DT_MAIN:g} h job"
+        check(bool(np.isfinite(mk).all()), f"{label}: unfinished trials")
+        check(np.array_equal(mk, ref), f"{label}: card makespans differ from "
+                                       f"checkpointing.simulate_makespan")
+        check(np.array_equal(mk, cpu), f"{label}: card makespans differ from "
+                                       f"the CPU executor on the same pool")
+        first_c, pool_c = engine.draw_lifetime_pool(
+            lf_cpu, FIG7_TRIALS, max_restarts=MAX_RESTARTS, seed=FIG7_SEED,
+            start_age=age)
+        pools_equal += bool(torch.equal(first.cpu(), first_c)
+                            and torch.equal(pool.cpu(), pool_c))
+        mean = float(mk.mean())
+        overhead[fig, age, J, p] = 100.0 * (mean / (J * DT_MAIN) - 1.0)
+        if p == "dp":
+            v = tables.expected_makespan(J, int(round(age / DT_MAIN)))
+            rel = abs(mean - v) / v
+            worst = max(worst, rel)
+            check(rel < 0.05, f"{label}: mean {mean} vs DP {v}")
+    print(f"[fig7] {len(cells)} cells: every makespan finite, bit-identical "
+          f"to simulate_makespan and to the CPU executor on the same pool; "
+          f"worst |DP mean - V| / V = {worst:.4%}; pools drawn on the CPU "
+          f"bit-identical to the card's in {pools_equal} of {len(cells)} "
+          f"cells")
+    for age in FIG7_AGES:
+        print(f"[fig7] 7a overhead, 4 h job from age {age:g} h: dp "
+              f"{overhead['7a', age, j4, 'dp']:.2f} %, young_daly "
+              f"{overhead['7a', age, j4, 'young_daly']:.2f} %")
+    for h in FIG7_HOURS:
+        print(f"[fig7] 7b overhead, {h} h job from age 0: " + ", ".join(
+            f"{p} {overhead['7b', 0.0, round(h / DT_MAIN), p]:.2f} %"
+            for p in ("dp", "young_daly", "none")))
+    pred = yd.expected_overhead(DT_MAIN, 1.0, restart_overhead=2 / 60.0)
+    print(f"[fig7] Young-Daly model-predicted overhead at MTTF 1 h: "
+          f"{100 * pred:.2f} % (paper > 25 %)")
+    return n
+
+
+def modes_timing(torch, sweep_kw, smi):
+    """Phase 18c: each mode's wall ms (median of 3 after a warm-up), the
+    serial mode's parts (an S = 1 solve, pool draw and executor call) and
+    Fig. 7's solve, and one serial sweep under torch.profiler."""
+    from repro_torch.core import distributions, engine, scenarios
+    from repro_torch.core.policies import checkpointing
+    grid = scenarios.default_grid()
+    timing = {f"sweep_{mode}_ms": host_ms(
+        torch, lambda mode=mode: scenarios.sweep_checkpointing(
+            grid, mode=mode, **sweep_kw), reps=3)
+        for mode in MODE_LAUNCHES}
+    dist0 = grid[0].dist()
+    solve_kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA, n_sweeps=N_SWEEPS,
+                    device="cuda")
+    timing["solve_s1_ms"] = cuda_ms(torch, lambda: checkpointing.solve(
+        dist0, J_MAIN, **solve_kw))
+    lf = checkpointing.model_lifetimes_fn(dist0, device="cuda")
+    pool_kw = dict(max_restarts=MAX_RESTARTS, seed=SEEDS[0])
+    timing["pool_draw_s1_ms"] = host_ms(
+        torch, lambda: engine.draw_lifetime_pool(lf, N_TRIALS, **pool_kw),
+        reps=3)
+    first, pool = engine.draw_lifetime_pool(lf, N_TRIALS, **pool_kw)
+    table = engine.dp_policy_table(checkpointing.solve(dist0, J_MAIN,
+                                                       **solve_kw))
+    timing["executor_s1_ms"] = host_ms(
+        torch, lambda: engine.simulate_makespan_batch(
+            table, J_MAIN, first=first, pool=pool, grid_dt=DT_MAIN,
+            delta_steps=DELTA, max_restarts=MAX_RESTARTS, device="cuda"),
+        reps=3)
+    wall, dev_ms, prof_rows = profile_window(
+        torch, lambda: scenarios.sweep_checkpointing(grid, mode="serial",
+                                                     **sweep_kw), top=5)
+    timing.update(sweep_serial_profiled_wall_ms=wall,
+                  sweep_serial_device_ms=dev_ms,
+                  sweep_serial_device_busy_share=None if dev_ms is None
+                  else dev_ms / wall)
+    for name, ms, calls in prof_rows:
+        print(f"[profile] serial sweep {ms:9.3f} ms  {calls:5d} x  {name}")
+    timing["solve_s8_ms"] = cuda_ms(torch, lambda: checkpointing.solve_batch(
+        [sc.dist() for sc in grid], J_MAIN, **solve_kw))
+    fig7_dist = distributions.constrained_for("n1-highcpu-16")
+    timing["fig7_solve_ms"] = cuda_ms(torch, lambda: checkpointing.solve(
+        fig7_dist, FIG7_J, **solve_kw))
+    timing["card"] = smi
+    print("[timing] sweep modes and fig7 " + json.dumps(timing))
+    return timing
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2637,6 +2906,14 @@ def main() -> int:
         train_times = training_timing(torch, bwd_inputs, smi, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # -- 18. the sweep modes and Fig. 7 ------------------------------------
+    t18 = time.perf_counter()
+    kernel["launches_by_path"].update(
+        sweep_modes=modes_phase(torch, dp_recurrence, sweep_kw),
+        fig7=fig7_phase(torch, dp_recurrence, dp_recurrence_plain))
+    modes_timing(torch, sweep_kw, smi)
+    print(f"[modes] phase 18 took {time.perf_counter() - t18:.1f} s")
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),

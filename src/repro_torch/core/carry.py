@@ -12,7 +12,7 @@ import torch
 
 from ..device import resolve_device
 from .distributions import registry
-from .policies.checkpointing import BatchDPTables
+from .policies.checkpointing import BatchDPTables, DPTables
 
 
 def dist_from_numpy(family: str, fields: dict, device="cuda"):
@@ -39,3 +39,15 @@ def batch_tables_from_numpy(V, K, *, grid_dt: float, delta_steps: int,
         grid_dt=float(grid_dt), delta_steps=int(delta_steps),
         restart_overhead=float(restart_overhead),
         horizon_idx=int(horizon_idx), backend="numpy", objective=objective)
+
+
+def tables_from_numpy(V, K, *, grid_dt: float, delta_steps: int,
+                      restart_overhead: float, horizon_idx: int,
+                      objective: str = "makespan", device="cuda") -> DPTables:
+    """A single-scenario :class:`DPTables` over float32 ``V`` and int32
+    ``K`` copied from ``(j_max+1, t_max+1)`` arrays onto ``device``."""
+    return batch_tables_from_numpy(
+        np.asarray(V)[None], np.asarray(K)[None], grid_dt=grid_dt,
+        delta_steps=delta_steps, restart_overhead=restart_overhead,
+        horizon_idx=horizon_idx, objective=objective,
+        device=device).tables(0)

@@ -177,6 +177,17 @@ class Constrained(_DistBase):
         return (self._antiderivative(self._f64(b))
                 - self._antiderivative(self._f64(a)))
 
+    def phases(self):
+        """Approximate phase boundaries (initial | stable | deadline): the
+        initial process has decayed by ~3*tau1; the deadline process
+        activates where its pdf term reaches the stable-phase floor at
+        t1.  Returns ``(t1, t2)`` tensors, ``t2`` clipped to [t1, L]."""
+        t1 = 3.0 * self._f64(self.tau1)
+        floor = self.pdf(t1)
+        t2 = self.b + self.tau2 * torch.log(
+            torch.clamp(floor * self.tau2 / self.A, min=1e-12))
+        return t1, _clip(t2, t1, self._f64(self.L))
+
     def icdf(self, u):
         """Invert Eq. 1: 12 bracketing halvings, then 6 safeguarded Newton
         steps (the bracket keeps shrinking, an overshoot is clipped back
@@ -266,6 +277,9 @@ class DiurnalConstrained(_DistBase):
 
     def icdf(self, u):
         return self.effective().icdf(u)
+
+    def phases(self):
+        return self.effective().phases()
 
 
 @_dist

@@ -10,7 +10,11 @@ integer grid steps and the only float accumulation is the sum of preempted
 partial segments, so on a shared pool each lane performs the same IEEE
 operations as ``repro``'s executor under x64 and the makespans agree to the
 bit.  Pools are drawn from ``numpy.random.default_rng`` uniforms in
-``repro``'s order and inverted on the device.  :class:`ReuseTables` holds
+``repro``'s order and inverted on the device: :func:`draw_lifetime_pool`
+for one sampler (``checkpointing.model_lifetimes_fn``),
+:func:`draw_lifetime_pool_batch` for a list of cells, both through
+:func:`capped_model_draw`; :func:`simulate_makespan_engine` is the draw
+followed by the executor.  :class:`ReuseTables` holds
 the batch service's reuse decisions for every scenario, evaluated in one
 call on the device, with a host copy for the serial event loop.
 :func:`accumulate_price_cost` bills makespans against a market price grid,
@@ -26,6 +30,16 @@ import torch
 from ..device import resolve_device
 from . import distributions as dists_mod
 from .policies import scheduling as sched_policy
+
+__all__ = [
+    "dp_policy_table", "young_daly_policy_table", "no_checkpoint_policy_table",
+    "validate_policy_table", "stack_policy_tables",
+    "capped_icdf_draw", "capped_model_draw",
+    "draw_lifetime_pool", "draw_lifetime_pool_batch",
+    "accumulate_price_cost",
+    "simulate_makespan_batch", "simulate_makespan_engine",
+    "ReuseTable", "ReuseTables",
+]
 
 _F64 = torch.float64
 
@@ -128,6 +142,63 @@ def capped_icdf_draw(dist, u, fl, L):
                                                  device=t.device), t)
 
 
+def capped_model_draw(dists, u, *, min_age: float = 0.0, device="cuda"):
+    """Lifetimes from uniforms ``u`` ``(S, n)``, row ``s`` inverted under
+    ``dists[s]``: restricted to ``[F(min_age), 1]`` when ``min_age > 0``
+    (survival to ``min_age``), then :func:`capped_icdf_draw`.
+
+    Each model is launch-resolved (``effective()``) and the list stacked to
+    ``(S, 1)`` fields on ``device``, with ``F(min_age)``, ``F(L)`` and
+    ``L`` as ``(S, 1)`` device tensors, so a model drawn alone (S = 1)
+    evaluates the same expressions on the same operand kinds as inside a
+    batch, and its rows are bit-identical to the batch's."""
+    dev = resolve_device(device)
+    eff = [d.effective() if hasattr(d, "effective") else d for d in dists]
+    stacked = dists_mod.stack(eff, device=dev)
+    d_b = dataclasses.replace(stacked, **{
+        f.name: getattr(stacked, f.name)[:, None]
+        for f in dataclasses.fields(stacked)})
+
+    def col(fn):
+        return torch.tensor([[float(fn(d))] for d in eff], dtype=_F64,
+                            device=dev)
+    if min_age > 0:
+        f_lo = col(lambda d: d.cdf(min_age))
+        u = f_lo + u * (1.0 - f_lo)
+    return capped_icdf_draw(d_b, u, col(lambda d: d.cdf(d.L)),
+                            col(lambda d: d.L))
+
+
+def _f64_tensor(x):
+    """A sampler's output as a float64 tensor (a tensor keeps its device)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(_F64)
+    return torch.from_numpy(np.array(x, np.float64))
+
+
+def draw_lifetime_pool(lifetimes_fn, n_trials: int, *, max_restarts: int = 64,
+                       seed: int = 0, start_age: float = 0.0):
+    """The ``(first, pool)`` lifetimes of one executor run, as float64
+    tensors on the sampler's device (the CPU for a sampler that returns
+    arrays).
+
+    ``lifetimes_fn(rng, n, min_age=0.0)`` follows ``repro``'s protocol
+    (``checkpointing.model_lifetimes_fn``).  From ``default_rng(seed)`` it
+    draws the ``(n_trials, max_restarts + 2)`` pool block first, then
+    ``first`` conditioned on survival to ``start_age``; a sampler without
+    ``min_age`` gets ``first = pool[:, 0]``.  Draw ``k >= 1`` after the
+    k-th preemption of trial ``n`` is ``pool[n, min(k, max_restarts + 1)]``.
+    """
+    rng = np.random.default_rng(seed)
+    pool = _f64_tensor(lifetimes_fn(rng, n_trials * (max_restarts + 2)))
+    pool = pool.reshape(n_trials, max_restarts + 2)
+    try:
+        first = _f64_tensor(lifetimes_fn(rng, n_trials, min_age=start_age))
+    except TypeError:  # sampler without conditioning support
+        first = pool[:, 0].clone()
+    return first, pool
+
+
 def draw_lifetime_pool_batch(dists, n_trials: int, *, max_restarts: int = 64,
                              seed=0, start_age: float = 0.0, device="cuda"):
     """Lifetime pools for a list of cells: ``first`` ``(S, n_trials)`` and
@@ -137,14 +208,11 @@ def draw_lifetime_pool_batch(dists, n_trials: int, *, max_restarts: int = 64,
     per entry.  Each entry's uniforms come from its own
     ``np.random.default_rng(seed)`` stream in ``repro``'s order (pool
     block, then the first draws), drawn once per unique seed; the inverse
-    CDF runs on the device over all entries at once."""
+    CDF runs on the device over all entries at once
+    (:func:`capped_model_draw`), so entry ``s`` equals
+    ``draw_lifetime_pool(model_lifetimes_fn(dists[s]), ...)`` to the bit."""
     dev = resolve_device(device)
     dists = list(dists)
-    eff = [d.effective() if hasattr(d, "effective") else d for d in dists]
-    stacked = dists_mod.stack(eff, device=dev)
-    d_b = dataclasses.replace(stacked, **{
-        f.name: getattr(stacked, f.name)[:, None]
-        for f in dataclasses.fields(stacked)})
     S = len(dists)
     n_pool = n_trials * (max_restarts + 2)
     if np.ndim(seed) == 0:
@@ -170,17 +238,8 @@ def draw_lifetime_pool_batch(dists, n_trials: int, *, max_restarts: int = 64,
                                  device=dev)[rows]
         u_first = torch.as_tensor(np.stack([draws[s][2] for s in order]),
                                   device=dev)[rows]
-    fl = torch.tensor([float(d.cdf(d.L)) for d in eff], dtype=_F64,
-                      device=dev)[:, None]
-    L = torch.tensor([float(d.L) for d in eff], dtype=_F64,
-                     device=dev)[:, None]
-    pool = capped_icdf_draw(d_b, u_pool, fl, L)
-    if start_age > 0:
-        f_lo = torch.tensor([float(d.cdf(start_age)) for d in eff],
-                            dtype=_F64, device=dev)[:, None]
-    else:
-        f_lo = torch.zeros((S, 1), dtype=_F64, device=dev)
-    first = capped_icdf_draw(d_b, f_lo + u_first * (1.0 - f_lo), fl, L)
+    pool = capped_model_draw(dists, u_pool, device=dev)
+    first = capped_model_draw(dists, u_first, min_age=start_age, device=dev)
     return first, pool.reshape(S, n_trials, max_restarts + 2)
 
 
@@ -398,6 +457,28 @@ def simulate_makespan_batch(policy_table, job_steps: int, *, first, pool,
     if return_finished:
         return out, finished
     return out
+
+
+def simulate_makespan_engine(policy_table, lifetimes_fn, job_steps: int, *,
+                             grid_dt: float = 1.0 / 60.0, delta_steps: int = 1,
+                             start_age: float = 0.0, n_trials: int = 2000,
+                             seed: int = 0, restart_overhead: float = 0.0,
+                             max_restarts: int = 64, device="cuda", **kw):
+    """The executor counterpart of ``checkpointing.simulate_makespan``: the
+    same sampler protocol and seed give the same lifetimes
+    (:func:`draw_lifetime_pool`), then :func:`simulate_makespan_batch` runs
+    them on ``device``.  Extra keywords (``unfinished``,
+    ``return_finished``, ``max_events``) pass through to it."""
+    first, pool = draw_lifetime_pool(lifetimes_fn, n_trials,
+                                     max_restarts=max_restarts, seed=seed,
+                                     start_age=start_age)
+    return simulate_makespan_batch(policy_table, job_steps, first=first,
+                                   pool=pool, grid_dt=grid_dt,
+                                   delta_steps=delta_steps,
+                                   start_age=start_age,
+                                   restart_overhead=restart_overhead,
+                                   max_restarts=max_restarts, device=device,
+                                   **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -395,3 +395,120 @@ def evaluate_policy_dollars(K, dists: Sequence, price, *, grid_dt: float,
             vj = (1.0 - p_fail) * v_succ + p_fail * v_fail
             V[:, j] = torch.where(dead, Rj, vj)
     return V
+
+
+# ---------------------------------------------------------------------------
+# Monte-Carlo executor (Fig. 7 evaluation): the per-trial reference
+#
+# This per-trial loop on the host is the semantic ground truth that
+# ``engine.simulate_makespan_batch`` is held to, not a path to speed up.
+# Lifetimes are converted to grid-step units (minus the first VM's sub-grid
+# age offset) outside the loop, so the loop compares integers against
+# precomputed floats and its only float accumulation is the sum of
+# preempted partial segments: on a shared pool the engine's float64 lanes
+# perform the same IEEE operations and the makespans agree to the bit.
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().astype(np.float64)
+    return np.asarray(x, np.float64)
+
+
+def simulate_makespan(policy_fn, lifetimes_fn, job_steps: int, *,
+                      grid_dt: float = 1.0 / 60.0, delta_steps: int = 1,
+                      start_age: float = 0.0, n_trials: int = 2000,
+                      seed: int = 0, restart_overhead: float = 0.0,
+                      max_restarts: int = 64, pool=None, first=None):
+    """Execute a job under sampled preemptions, one trial at a time on the
+    host.
+
+    ``policy_fn(remaining_steps, age_idx) -> steps until next checkpoint``;
+    ``lifetimes_fn(rng, n, min_age=0.0)`` samples lifetimes (hours)
+    conditioned on survival to ``min_age`` (the first VM of a job that
+    starts on an aged machine).  Alternatively pass pre-drawn ``first``
+    ``(n_trials,)`` and ``pool`` ``(n_trials, max_restarts+2)`` (arrays or
+    tensors, copied to the host) from ``engine.draw_lifetime_pool``.
+
+    A failure during a work segment or the checkpoint write loses progress
+    back to the last durable checkpoint; the job resumes on a fresh VM
+    (age 0) after ``restart_overhead`` hours.  A trial that exhausts
+    ``max_restarts`` reports the time it accumulated.  Returns float64
+    makespans (hours), shape ``(n_trials,)``.
+    """
+    if pool is None:
+        from .. import engine
+
+        first, pool = engine.draw_lifetime_pool(
+            lifetimes_fn, n_trials, max_restarts=max_restarts, seed=seed,
+            start_age=start_age)
+    pool = _host(pool)
+    first = pool[:, 0] if first is None else _host(first)
+    n_trials = len(first)
+    age0_idx = int(round(start_age / grid_dt))
+    off0 = start_age - age0_idx * grid_dt
+    first_steps = (first - off0) / grid_dt
+    pool_steps = pool / grid_dt
+    out = np.empty((n_trials,), np.float64)
+    for n in range(n_trials):
+        remaining = int(job_steps)
+        age_idx = age0_idx
+        draw = 0
+        life_s = first_steps[n]
+        done_steps = 0          # completed work+checkpoint segments (steps)
+        lost_steps = 0.0        # preempted partial segments (steps)
+        restarts = 0
+        while remaining > 0 and restarts <= max_restarts:
+            i = int(policy_fn(remaining, age_idx))
+            i = max(1, min(i, remaining))
+            w = i + (delta_steps if i < remaining else 0)
+            if age_idx + w <= life_s:
+                done_steps += w
+                age_idx += w
+                remaining -= i
+            else:
+                lost_steps += max(life_s - age_idx, 0.0)
+                draw += 1
+                life_s = pool_steps[n, min(draw, max_restarts + 1)]
+                age_idx = 0
+                restarts += 1
+        out[n] = (done_steps + lost_steps) * grid_dt \
+            + restarts * restart_overhead
+    return out
+
+
+def dp_policy_fn(tables: DPTables):
+    """``policy_fn`` of the DP's table (read from a host copy of K)."""
+    K = tables.K.cpu().numpy()
+    j_hi, t_hi = K.shape[0] - 1, K.shape[1] - 1
+    return lambda remaining, age_idx: int(
+        K[min(max(remaining, 0), j_hi), min(max(age_idx, 0), t_hi)])
+
+
+def young_daly_policy_fn(tau_hours: float, grid_dt: float):
+    tau_steps = max(1, int(round(tau_hours / grid_dt)))
+    return lambda remaining, age_idx: min(tau_steps, remaining)
+
+
+def no_checkpoint_policy_fn():
+    return lambda remaining, age_idx: remaining
+
+
+def model_lifetimes_fn(dist, device="cuda"):
+    """``lifetimes_fn`` of ``dist``: ``fn(rng, n, min_age=0.0)`` takes
+    ``rng.uniform(size=n)`` from a numpy Generator, restricts it to
+    ``[F(min_age), 1]`` when ``min_age > 0`` and inverts it on ``device``,
+    the residual ``u >= F(L)`` mass preempted at ``L``
+    (``engine.capped_model_draw`` with one model).  Returns a float64
+    tensor on ``device``, bit-identical to the same uniforms' row of
+    ``engine.draw_lifetime_pool_batch``."""
+    from .. import engine
+
+    dev = resolve_device(device)
+
+    def fn(rng, n, min_age: float = 0.0):
+        u = torch.as_tensor(rng.uniform(size=n), device=dev)[None, :]
+        return engine.capped_model_draw([dist], u, min_age=min_age,
+                                        device=dev)[0]
+
+    return fn

@@ -4,11 +4,17 @@ checkpointing half of ``repro.core.scenarios``).
 A scenario names a market condition - zone x diurnal launch phase x VM
 type - and resolves to a :class:`~repro_torch.core.distributions.
 DiurnalConstrained` model.  :func:`sweep_checkpointing` expands
-(scenario x policy x seed) into one DP solve, one pool draw and one
-executor run on the device, and returns one row per cell in ``repro``'s
-row order and schema.  :func:`sweep_service` expands
-(scenario x policy x cluster_size x seed) over the batch service, serially
-on the host or as one batched loop on the device.
+(scenario x policy x seed) over the device executor in ``repro``'s three
+modes - ``"batched"`` (one DP solve, one pool draw and one executor run
+for the whole grid), ``"grouped"`` (one solve, one executor run per
+(seed, policy)) and ``"serial"`` (per scenario: a solve, a pool per seed,
+an executor run per policy) - and returns one row per cell in ``repro``'s
+row order and schema.  The three modes' rows are identical in every
+field: each mode's DP tables, pools and executor lanes perform the same
+per-scenario operations, so they agree to the bit.
+:func:`sweep_service` expands (scenario x policy x cluster_size x seed)
+over the batch service, serially on the host or as one batched loop on
+the device.
 :func:`sweep_market` bills the checkpointing executor's makespans in
 dollars against the market's price grids, over calm and crunch regimes
 and three cost policies; :func:`solve_market_tables` solves its DP tables
@@ -133,6 +139,29 @@ def _resolve(scenarios) -> list:
 _CKPT_POLICY_BUILDERS = ("dp", "young_daly", "none")
 
 
+def _young_daly_steps(dist, grid_dt: float, delta_steps: int) -> int:
+    """The Fig. 7 baseline's interval in grid steps: Young-Daly with the
+    MTTF implied by THIS distribution's initial failure rate and the
+    sweep's checkpoint-write cost."""
+    tau = float(yd.interval(delta_steps * grid_dt,
+                            yd.mttf_from_initial_rate(dist)))
+    return max(1, int(round(tau / grid_dt)))
+
+
+def _policy_tables(policy: str, tables: "ckpt.DPTables", job_steps: int,
+                   grid_dt: float, delta_steps: int, dist):
+    """One scenario's 2-D policy table (the serial mode)."""
+    if policy == "dp":
+        return engine.dp_policy_table(tables)
+    if policy == "young_daly":
+        return engine.young_daly_policy_table(
+            _young_daly_steps(dist, grid_dt, delta_steps), job_steps)
+    if policy == "none":
+        return engine.no_checkpoint_policy_table(job_steps)
+    raise ValueError(f"unknown checkpointing policy {policy!r}; "
+                     f"choose from {_CKPT_POLICY_BUILDERS}")
+
+
 def _policy_tables_batch(policy: str, batch: "ckpt.BatchDPTables",
                          job_steps: int, grid_dt: float, delta_steps: int,
                          dist_list):
@@ -141,13 +170,9 @@ def _policy_tables_batch(policy: str, batch: "ckpt.BatchDPTables",
     if policy == "dp":
         return engine.dp_policy_table(batch)
     if policy == "young_daly":
-        tabs = []
-        for dist in dist_list:
-            tau = float(yd.interval(delta_steps * grid_dt,
-                                    yd.mttf_from_initial_rate(dist)))
-            tau_steps = max(1, int(round(tau / grid_dt)))
-            tabs.append(engine.young_daly_policy_table(tau_steps, job_steps))
-        return np.stack(tabs)
+        return np.stack([engine.young_daly_policy_table(
+            _young_daly_steps(dist, grid_dt, delta_steps), job_steps)
+            for dist in dist_list])
     if policy == "none":
         return engine.no_checkpoint_policy_table(job_steps)
     raise ValueError(f"unknown checkpointing policy {policy!r}; "
@@ -202,29 +227,48 @@ def sweep_checkpointing(scenarios: Iterable, *,
                         n_trials: int = 1000, grid_dt: float = 1.0 / 60.0,
                         delta_steps: int = 1, max_restarts: int = 64,
                         restart_overhead: float = 0.0, n_sweeps: int = 3,
+                        mode: str = "batched",
                         tables: Optional["ckpt.BatchDPTables"] = None,
                         solver_backend: str = "auto",
                         solver_refine: bool = False,
                         device="cuda") -> list:
-    """Expand (scenario x policy x seed) over the device executor: ``repro``'s
-    ``mode="batched"`` fold.
+    """Expand (scenario x policy x seed) over the device executor.
 
-    One ``checkpointing.solve_batch`` call solves every scenario's DP (or
+    ``mode="batched"`` (default) folds the whole grid: one
+    ``checkpointing.solve_batch`` call solves every scenario's DP (or
     ``tables``, a ``BatchDPTables`` for this scenario list, is reused), one
     ``engine.draw_lifetime_pool_batch`` call draws every (scenario, seed)
     pool, and one ``engine.simulate_makespan_batch`` run executes all
     ``B = S*P*R`` cells.  Cell ``b`` is the row-order index
     ``(s*R + r)*P + p``; its pool is shared by the P policies of its
     (scenario, seed) and its table by the R seeds of its (scenario, policy),
-    both through the executor's table/pool indices.  Truncated trials are
-    NaN-flagged and excluded from the row statistics; ``unfinished_frac``
-    records them.  ``solver_backend`` / ``solver_refine`` pass through to
+    both through the executor's table/pool indices.
+
+    ``mode="grouped"`` solves (or reuses ``tables``) in one call too, then
+    per seed draws one pool for every scenario and runs one executor call
+    per (seed, policy).  ``mode="serial"`` is the per-scenario reference
+    path: one ``checkpointing.solve`` (``solve_batch`` at S = 1), one
+    ``engine.draw_lifetime_pool`` per seed through
+    ``checkpointing.model_lifetimes_fn`` and one executor call per policy,
+    scenario by scenario; it takes no ``tables`` and ignores
+    ``solver_backend`` / ``solver_refine``.
+
+    All modes give identical rows.  Truncated trials are NaN-flagged and
+    excluded from the row statistics; ``unfinished_frac`` records them.
+    ``solver_backend`` / ``solver_refine`` pass through to
     ``solve_batch``'s ``backend`` / ``refine`` (refinement is slower than
     the plain solve on CUDA; see ``solve_batch``).
     """
+    if mode not in ("batched", "grouped", "serial"):
+        raise ValueError(f"mode must be 'batched', 'grouped' or 'serial', "
+                         f"got {mode!r}")
     dev = resolve_device(device)
     scs = _resolve(scenarios)          # once: scenarios may be a generator
     if tables is not None:
+        if mode == "serial":
+            raise ValueError("tables= reuse is for the batched/grouped "
+                             "modes; the serial reference path always "
+                             "re-solves")
         if len(tables) != len(scs) or tables.K.shape[1] != job_steps + 1:
             raise ValueError(
                 f"tables has {len(tables)} scenarios x j_max "
@@ -236,6 +280,37 @@ def sweep_checkpointing(scenarios: Iterable, *,
             raise ValueError("tables was solved for a different "
                              "(grid_dt, delta_steps, restart_overhead) "
                              "workload")
+    ex_kw = dict(grid_dt=grid_dt, delta_steps=delta_steps,
+                 restart_overhead=restart_overhead,
+                 max_restarts=max_restarts, unfinished="nan",
+                 return_finished=True, device=dev)
+    rows = []
+    if mode == "serial":
+        for sc in scs:
+            dist = sc.dist()
+            dp = ckpt.solve(dist, job_steps, grid_dt=grid_dt,
+                            delta_steps=delta_steps, n_sweeps=n_sweeps,
+                            restart_overhead=restart_overhead, device=dev)
+            ptables = {p: _policy_tables(p, dp, job_steps, grid_dt,
+                                         delta_steps, dist)
+                       for p in policies}
+            lifetimes_fn = ckpt.model_lifetimes_fn(dist, device=dev)
+            p_fail_fresh = float(dist.cdf(job_steps * grid_dt))
+            expected = dp.expected_makespan(job_steps)
+            for seed in seeds:
+                first, pool = engine.draw_lifetime_pool(
+                    lifetimes_fn, n_trials, max_restarts=max_restarts,
+                    seed=seed)
+                for policy in policies:
+                    mk, fin = engine.simulate_makespan_batch(
+                        ptables[policy], job_steps, first=first, pool=pool,
+                        **ex_kw)
+                    rows.append(_ckpt_row(
+                        sc, policy, seed, mk, fin, n_trials=n_trials,
+                        job_steps=job_steps, p_fail_fresh=p_fail_fresh,
+                        expected_makespan_dp=expected))
+        return rows
+
     dist_list = [sc.dist() for sc in scs]
     batch = tables if tables is not None else ckpt.solve_batch(
         dist_list, job_steps, grid_dt=grid_dt, delta_steps=delta_steps,
@@ -243,6 +318,30 @@ def sweep_checkpointing(scenarios: Iterable, *,
         backend=solver_backend, refine=solver_refine, device=dev)
     p_fail_fresh = [float(d.cdf(job_steps * grid_dt)) for d in dist_list]
     expected = batch.V[:, job_steps, 0].cpu().tolist()
+
+    if mode == "grouped":
+        ptables = {p: _policy_tables_batch(p, batch, job_steps, grid_dt,
+                                           delta_steps, dist_list)
+                   for p in policies}
+        cells = {}
+        for seed in seeds:
+            first, pool = engine.draw_lifetime_pool_batch(
+                dist_list, n_trials, max_restarts=max_restarts, seed=seed,
+                device=dev)
+            for policy in policies:
+                cells[seed, policy] = engine.simulate_makespan_batch(
+                    ptables[policy], job_steps, first=first, pool=pool,
+                    **ex_kw)
+        for s, sc in enumerate(scs):             # serial row order
+            for seed in seeds:
+                for policy in policies:
+                    mk, fin = cells[seed, policy]
+                    rows.append(_ckpt_row(
+                        sc, policy, seed, mk[s], fin[s], n_trials=n_trials,
+                        job_steps=job_steps, p_fail_fresh=p_fail_fresh[s],
+                        expected_makespan_dp=expected[s]))
+        return rows
+
     first_sr, pool_sr = engine.draw_lifetime_pool_batch(
         [d for d in dist_list for _ in seeds], n_trials,
         max_restarts=max_restarts,
@@ -253,11 +352,7 @@ def sweep_checkpointing(scenarios: Iterable, *,
     mk_b, fin_b = engine.simulate_makespan_batch(
         table_u, job_steps, first=first_sr[torch.as_tensor(pool_ix,
                                                            device=dev)],
-        pool=pool_sr, grid_dt=grid_dt, delta_steps=delta_steps,
-        restart_overhead=restart_overhead, max_restarts=max_restarts,
-        unfinished="nan", return_finished=True,
-        table_index=table_ix, pool_index=pool_ix, device=dev)
-    rows = []
+        pool=pool_sr, table_index=table_ix, pool_index=pool_ix, **ex_kw)
     for b, (s, seed, policy) in enumerate(
             itertools.product(range(len(scs)), seeds, policies)):
         rows.append(_ckpt_row(

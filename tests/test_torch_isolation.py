@@ -92,6 +92,19 @@ def test_default_device_raises_without_a_gpu():
             pool=[[1.0, 1.0]], max_restarts=0),
         lambda: scenarios.sweep_checkpointing(scenarios.default_grid()[:1],
                                               job_steps=4, n_trials=2),
+        lambda: scenarios.sweep_checkpointing(scenarios.default_grid()[:1],
+                                              job_steps=4, n_trials=2,
+                                              mode="serial"),
+        lambda: scenarios.sweep_checkpointing(scenarios.default_grid()[:1],
+                                              job_steps=4, n_trials=2,
+                                              mode="grouped"),
+        lambda: checkpointing.model_lifetimes_fn(d),
+        lambda: engine.capped_model_draw([d], torch.full((1, 2), 0.5,
+                                                         dtype=torch.float64)),
+        lambda: engine.simulate_makespan_engine(
+            engine.no_checkpoint_policy_table(4),
+            checkpointing.model_lifetimes_fn(d, device="cpu"), 4,
+            n_trials=2),
         lambda: transformer.init(cfg, torch.Generator()),
         lambda: weights.from_jax_params(cfg, {}),
         lambda: serve.serve_batch(cfg, None, [[1, 2, 3]]),
