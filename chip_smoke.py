@@ -46,9 +46,12 @@ failure:
    4000 trials, max_restarts 64, with the kernel launch counter reset just
    before and read just after.  Checks: the kernel ran, the DP tables
    validate, all 48 rows finite with no unfinished trials, each dp row's
-   Monte-Carlo mean within 5 % of the DP's expected makespan, and the
+   Monte-Carlo mean within 5 % of the DP's expected makespan, the
    executor's float64 makespans bit-identical between the card and the CPU
-   on one shared pool.
+   on one shared pool, and that pool (the first scenario's, 4000 trials,
+   seed 0) drawn on the card within rtol POOL_RTOL = 1e-8 of the same pool
+   drawn on the CPU (exp rounds differently there; the largest relative
+   difference is printed).
 5. Timing: medians of 5 runs after a warm-up (CUDA events for the DP solves,
    host clock plus synchronize for the rest), the kernel launches a solve
    makes, and one sweep under torch.profiler for its wall time, the
@@ -58,14 +61,19 @@ failure:
    at the serving path's shapes in bf16 and at further cases (float32, a
    ragged length, llama3.2-1b's full-causal GQA shape and its bf16 decode
    at D = 64, yi-34b's full-causal bf16 shape at D = 128 (H = 56, KV = 8,
-   S = 2048), Sq < Sk, mixed decode lengths, the recurrence with and
+   S = 2048), musicgen-medium's (8 x 2048, MHA H = KV = 24, D = 64) and
+   qwen2-vl-2b's (H = 12, KV = 2, D = 128) prefill and decode shapes (a
+   cache of 2080 slots, mixed lengths), Sq < Sk, mixed decode lengths,
+   the recurrence with and
    without h0, at S = 1, at S not a
    multiple of its time chunk (2047, 37), at B = 1, at W not a multiple of
    its channel slice (1000), and at a W whose rows TMA cannot address
    (1001)); each recurrence case checks which kernel its launch chose (the
    chunked one for S >= 16 with rows of a multiple of 16 bytes, the loop
    kernel at S = 1 and W = 1001) and prints whether h and h_last are
-   bit-identical to the plain version's.
+   bit-identical to the plain version's; and the recurrence called on an
+   input that requires grad raises (its kernel has no backward) without
+   launching, while the same call under ``torch.no_grad()`` launches.
    Tolerances: float32 within rtol = atol = 1e-5 (summation order only);
    bf16 within 2 bf16 ulps of the plain result (the plain versions compute
    in float32 and round once; the attention kernels sum bf16 products in
@@ -87,7 +95,11 @@ failure:
    tokens agreeing wherever the top-2 margin exceeds the tolerance; at 3
    layers (one period), full width, float32, B = 2, prompt 64, 8 tokens,
    the card's logits match the port on the CPU within LOGIT_TOL_F32, and
-   the greedy tokens agree wherever the top-2 margin exceeds it.
+   the greedy tokens agree wherever the top-2 margin exceeds it.  Then one
+   more batch (2 x 256 tokens, 4 greedy tokens) on a pod that has run
+   ROTATE_AGE = 23.5 h: the reuse policy denies it, so the pod rotates
+   (``PreemptionSource.replace_pod`` on the card; its age restarts at 0),
+   with that batch's launches counted.
 8. Serving timing: prefill ms (time to first token), decode ms per step and
    tokens/s, peak device memory, and each kernel's, its plain version's and
    a PyTorch call's time at the serving shapes (CUDA-graph replays, medians
@@ -178,7 +190,9 @@ failure:
    drawn on the card; out and lse from the forward kernel) at smollm-135m's
    training shape (B 8, S 2048, H 9, KV 3, D 64, causal) in bf16 and
    float32, window 512, D 128 (H 56, KV 8, S 1024), S 1000 (causal, and
-   in bf16 with no mask) and B 1; each case runs twice and must be
+   in bf16 with no mask), B 1, and musicgen-medium's (8 x 2048, H = KV =
+   24, D 64) and qwen2-vl-2b's (H 12, KV 2, D 128) training shapes in
+   bf16; each case runs twice and must be
    bit-identical; the forward's LSE against the
    plain LSE (float32 within 1e-5); the autograd Function against
    torch.autograd through ``flash_attention_plain`` in float32.  bf16 runs
@@ -235,11 +249,45 @@ failure:
    17).  Checks: every makespan finite; each DP cell's mean within 5 % of
    the table's V at (J, age); each cell bit-identical to
    ``simulate_makespan`` and to the CPU executor on the same pool (printed
-   too: in how many cells a pool drawn on the CPU equals the card's).
+   too: in how many cells a pool drawn on the CPU equals the card's), and
+   each cell's pool drawn on the card within rtol POOL_RTOL of the CPU's.
    Prints each cell's overhead and Young-Daly's model-predicted overhead
    at MTTF 1 h beside the paper's "> 25 %".  (c) Timing: each mode's wall
    ms (median of 3 after a warm-up, ending in a synchronize), the S = 1
    and S = 8 solves at J = 300 and Fig. 7's solve (CUDA events).
+19. Embeddings input and M-RoPE: musicgen-medium (48 layers, d_model 1536,
+   MHA 24 x 64, GELU, no positions, untied) and qwen2-vl-2b (28 layers,
+   12 / 2 heads of 128, M-RoPE sections (16, 24, 24), tied 151,936 x 1536
+   table) at full width and depth, weights from a seeded generator on the
+   card.  (a) Serving through ``steps.make_prefill_step`` /
+   ``make_decode_step`` (the serve CLI refuses embeds-input archs):
+   prefill on seeded bf16 embeddings, 8 x 2048, with three distinct
+   M-RoPE streams for qwen2-vl (t = s, h = s // 32, w = s % 32), then 31
+   greedy decode steps fed back through the embedding table at default
+   positions, every kernel count reset just before and read just after.
+   Checks: flash n_layers launches a prefill and decode n_layers a step,
+   nothing else; every logit finite; decode step 1 against a full forward
+   over the embeddings plus the token's table row, positions extended,
+   within LOGIT_TOL_BF16; at 2 layers, full width, float32, B 2, 64
+   inputs, 8 tokens, the card's logits within LOGIT_TOL_F32 of the port on
+   the CPU.  Times prefill, decode per step (tokens/s) and the decode
+   steps' busy share.  (b) Training through ``steps.make_train_step``
+   (bf16 compute, float32 masters, remat) on {embeds, labels, mask[,
+   positions]} at 8 x 2048.  Checks: one step launches flash 2 x n_layers
+   and the backward n_layers, nothing else; the loss finite; its peak at
+   most 75 GB (else its batch must be halved); a ``grad_accum=2`` step
+   (positions cut along their batch axis) runs with a finite loss; at 2
+   layers, full width, float32, B 2, S 256 the card's loss within rtol
+   1e-6 and every gradient element within atol 1e-6 + rtol 1e-4 of the
+   CPU's (``tests/test_torch_train.py``'s float32 tolerance).  Times the
+   step (median of 5 after a warm-up), tokens/s, peak memory, the model
+   FLOPs' share of the bf16 tensor peak (as phase 17) and one profiled
+   step's busy share.  (c) The flash forward (with LSE), the flash
+   backward and decode attention at each model's shape (CUDA-graph
+   replays) beside their plain versions, SDPA and the bound.  (d)
+   yi-34b and deepseek-coder-33b at full width cut to 4 layers, serving
+   8 x 2048 token prompts with 31 decode steps: launches, finite logits,
+   decode step 1 against the full forward.  Prints the phase's seconds.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -280,6 +328,7 @@ KERNELS = ("dp_recurrence", "flash_attention", "decode_attention",
 # the serving cell: recurrentgemma-2b, 4 batches of 8 x 2048-token prompts,
 # 32 greedy tokens each
 ARCH, BATCHES, BATCH, PROMPT, N_DECODE = "recurrentgemma-2b", 4, 8, 2048, 32
+ROTATE_AGE = 23.5              # hours: a pod the reuse policy rotates
 # Decode step 1 against a full forward in bf16, logits of spread ~1: the
 # decode path rounds the RG-LRU state to bf16 between steps in each of the
 # 18 recurrent layers (as repro does), and cuBLAS sums the products of one
@@ -352,6 +401,8 @@ BWD_CASES = (
     ("S=1000 float32", 2, 1000, 9, 3, 64, 0, True, "f32"),
     ("B=1", 1, TRAIN_SEQ, 9, 3, 64, 0, True, "bf16"),
     ("S=1000 not causal", 2, 1000, 9, 3, 64, 0, False, "bf16"),
+    ("musicgen-medium train", 8, 2048, 24, 24, 64, 0, True, "bf16"),
+    ("qwen2-vl-2b train", 8, 2048, 12, 2, 128, 0, True, "bf16"),
 )
 # the sweep modes and Fig. 7 (phase 18): the main path's sweep in each
 # mode, and benchmarks/fig7_checkpointing.py's setup (n1-highcpu-16, DP
@@ -362,6 +413,23 @@ FIG7_J, FIG7_TRIALS, FIG7_SEED = 720, 600, 17
 FIG7_AGES = (0.0, 2.0, 6.0, 10.0, 15.0)   # Fig. 7a: a 4 h job from each age
 FIG7_HOURS = (1, 2, 4, 6, 8)              # Fig. 7b: jobs from age 0
 FIG7_PAPER_SCHEDULE = (15, 28, 38, 59, 128)
+# phase 19: the embeddings-input archs at full width and depth (arch, key
+# in the kernel line's launches_by_path), serving 8 x 2048 inputs with 32
+# greedy tokens and training on 8 x 2048; the card against the CPU at 2
+# layers; a train step's peak may not pass 75 GB (else halve its batch)
+P19_ARCHS = (("musicgen-medium", "musicgen"), ("qwen2-vl-2b", "qwen2_vl"))
+P19_BATCH, P19_PROMPT, P19_DECODE, P19_CPU_LAYERS = 8, 2048, 32, 2
+P19_PEAK_LIMIT = 75e9
+# ... and the two 33-34 B dense archs at full width, cut to 4 layers (~68 GB
+# of bf16 weights whole), serving only
+P19_DEPTH_CUT = (("yi-34b", 4), ("deepseek-coder-33b", 4))
+# a pool drawn on the card against one drawn on the CPU (phases 4 and 18):
+# the same float64 expressions, but exp rounds differently (each within an
+# ulp), and the inverse of Eq. 1 divides an error in F by the density,
+# which is ~1e-5-1e-7 in the model's flat middle; tests/
+# test_torch_embeds_mrope.py perturbs every exp by an ulp on the CPU and
+# holds these pools within POOL_RTOL / 10
+POOL_RTOL = 1e-8
 RT_CONFIG = dict(job_steps=J_MAIN, grid_dt=DT_MAIN, delta_steps=DELTA,
                  n_sweeps=N_SWEEPS, warm_sweeps=2, window=256,
                  refit_every=64, min_samples=64, regret_trials=256,
@@ -376,6 +444,19 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+def zero_counts(fns):
+    """Set the launch count of each kernel wrapper in ``fns`` to 0."""
+    for fn in fns:
+        fn.launches = 0
+        if hasattr(fn, "launches_by_kernel"):
+            fn.launches_by_kernel = dict.fromkeys(fn.launches_by_kernel, 0)
+
+
+def counts(fns):
+    """The launch count of each kernel wrapper in ``fns``, by name."""
+    return {fn.__name__: fn.launches for fn in fns}
 
 
 def nvidia_smi(query: str) -> str:
@@ -561,6 +642,21 @@ def exact_ties(torch, grids, dp_recurrence, dp_recurrence_plain):
     check(first, "exact ties: the argmin is not the first candidate")
 
 
+def pool_rel_err(torch, card, cpu, label):
+    """The largest relative difference of a pool (``first``, ``pool``)
+    drawn on the card from the same pool drawn on the CPU, held within
+    POOL_RTOL; also whether the two are bit-identical."""
+    rel, same = 0.0, True
+    for a, b in zip(card, cpu):
+        d = (a.cpu() - b).abs()
+        check(bool((d <= POOL_RTOL * b.abs()).all()),
+              f"{label}: the card's pool differs from the CPU's beyond "
+              f"rtol {POOL_RTOL}")
+        rel = max(rel, float((d / b.abs().clamp_min(1e-300)).max()))
+        same = same and bool(torch.equal(a.cpu(), b))
+    return rel, same
+
+
 def fp32_peak_ops(torch):
     """FP32 operations per second of the card: SMs x 128 lanes x 2 (FMA) x
     the SM clock's maximum."""
@@ -628,6 +724,8 @@ def serving_kernels_vs_plain(torch):
         ("ragged S=2049", 2, 2049, 2049, 10, 1, 256, 2048, bf16),
         ("llama3.2-1b full causal", 1, 2048, 2048, 32, 8, 64, 0, bf16),
         ("yi-34b full causal", 1, 2048, 2048, 56, 8, 128, 0, bf16),
+        ("musicgen-medium prefill", 8, 2048, 2048, 24, 24, 64, 0, bf16),
+        ("qwen2-vl-2b prefill", 8, 2048, 2048, 12, 2, 128, 0, bf16),
         ("float32 window 128", 2, 512, 512, 4, 2, 128, 128, f32),
         ("Sq < Sk float32", 2, 100, 300, 4, 1, 256, 0, f32),
     ]
@@ -648,6 +746,10 @@ def serving_kernels_vs_plain(torch):
         ("float32 GQA", 3, 300, 32, 8, 64, [300, 1, 150], f32),
         ("llama3.2-1b decode", BATCH, S, 32, 8, 64,
          [2048, 1, 513, 2047, 64, 1000, 2048, 7], bf16),
+        ("musicgen-medium decode", BATCH, S + 32, 24, 24, 64,
+         [2049, 2080, 1, 2050, 2048, 64, 1000, 2079], bf16),
+        ("qwen2-vl-2b decode", BATCH, S + 32, 12, 2, 128,
+         [2049, 2080, 1, 2050, 2048, 64, 1000, 2079], bf16),
     ]
     for label, B, S_, H, KV, D, lens, dt in decode_cases:
         q = normal(B, H, D, dtype=dt)
@@ -696,19 +798,42 @@ def serving_kernels_vs_plain(torch):
         errs["linear_recurrence"] = max(errs["linear_recurrence"], err)
         if label == "serving prefill":
             main["linear_recurrence"] = (a, b, h0)
+    # the kernel has no backward: where autograd would record, the wrapper
+    # raises instead of returning outputs without a grad_fn
+    a, b, h0 = main["linear_recurrence"]
+    before = linear_recurrence.launches
+    raised = None
+    try:
+        linear_recurrence(a.detach().requires_grad_(), b, h0)
+    except RuntimeError as e:
+        raised = str(e)
+    print(f"[serve-kernels] recurrence on an input that requires grad: "
+          f"raised {raised is not None} ({raised}); launches "
+          f"{linear_recurrence.launches - before}")
+    check(raised is not None and "queue 1 item 2" in raised,
+          "the recurrence kernel ran where autograd records")
+    check(linear_recurrence.launches == before,
+          "the refused recurrence call launched the kernel")
+    with torch.no_grad():
+        linear_recurrence(a.detach().requires_grad_(), b, h0)
+    check(linear_recurrence.launches == before + 1,
+          "the recurrence under no_grad did not launch")
     return errs, main
 
 
 def greedy_run(torch, model, prompts, n_decode, feed=None):
     """Prefill + (n_decode - 1) greedy decode steps through the port's
     steps; returns every step's last-position logits (float32) and the
-    tokens.  ``feed`` forces the tokens fed back (teacher forcing)."""
+    tokens.  ``prompts``: (B, S) tokens, or a prefill batch (``embeds``
+    and, under M-RoPE, ``positions``); decode feeds tokens back through the
+    embedding table at the default positions.  ``feed`` forces the tokens
+    fed back (teacher forcing)."""
     from repro_torch.launch import steps
     cfg = model.cfg
-    B, S = prompts.shape
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    B, S = batch["tokens" if "tokens" in batch else "embeds"].shape[:2]
     cache = model.init_cache(B, S + n_decode)
-    logits, cache = steps.make_prefill_step(cfg)(model, cache,
-                                                  {"tokens": prompts})
+    logits, cache = steps.make_prefill_step(cfg)(model, cache, batch)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     out_logits, out_toks = [logits[:, -1].float()], [tok]
     decode = steps.make_decode_step(cfg)
@@ -721,22 +846,25 @@ def greedy_run(torch, model, prompts, n_decode, feed=None):
 
 
 def decode_vs_full(torch, model, prompts, tol):
-    """Decode step 1's logits (after a prefill of ``prompts`` and the
-    greedy token) against a full forward over prompts + that token: the
-    largest difference must stay within ``tol``, and the greedy tokens
-    agree wherever the top-2 margin exceeds it.  Returns the largest
+    """Decode step 1's logits (after a prefill of ``prompts``, tokens or a
+    batch as ``greedy_run`` takes them, and the greedy token) against a
+    full forward over the S + 1 inputs (``extended``): the largest
+    difference must stay within ``tol``, and the greedy tokens agree
+    wherever the top-2 margin exceeds it.  Returns the largest
     difference."""
-    logits, toks = greedy_run(torch, model, prompts, 2)
-    full, _ = model(torch.cat([prompts, toks[:, :1].long()], dim=1),
-                    last_only=True)
+    batch = prompts if isinstance(prompts, dict) else {"tokens": prompts}
+    logits, toks = greedy_run(torch, model, batch, 2)
+    full_in = extended(torch, model, batch, toks[:, :1])
+    full, _ = model(**full_in, last_only=True)
     full, dec = full[:, 0].float(), logits[:, 1]
     diff = (full - dec).abs()
     top2 = full.topk(2, dim=-1).values
     decided = (top2[:, 0] - top2[:, 1]) > tol
     same = bool((full.argmax(-1) == dec.argmax(-1))[decided].all())
     rel_rms = float(diff.square().mean().sqrt() / full.square().mean().sqrt())
-    print(f"[serve] {model.cfg.compute_dtype}, B = {prompts.shape[0]}: "
-          f"decode step 1 vs full forward (S = {prompts.shape[1] + 1}): "
+    B, S1 = next(iter(full_in.values())).shape[:2]
+    print(f"[serve] {model.cfg.name} {model.cfg.compute_dtype}, B = {B}: "
+          f"decode step 1 vs full forward (S = {S1}): "
           f"max|d logit| = {float(diff.max()):.4g}, mean "
           f"{float(diff.mean()):.3g}, rms relative to the logits' "
           f"{rel_rms:.3g} (need max <= {tol});"
@@ -747,10 +875,55 @@ def decode_vs_full(torch, model, prompts, tol):
     return float(diff.max())
 
 
+def extended(torch, model, batch, tok):
+    """The prefill batch followed by the (B, 1) token ``tok``, as a full
+    forward takes it: the token appended to token prompts, or its table row
+    (as decode embeds it) appended to embeddings, with the positions
+    extended by the next position in every stream (decode's default)."""
+    from repro_torch.models import layers as L
+    tok = tok.long()
+    if "tokens" in batch:
+        return {"tokens": torch.cat([batch["tokens"], tok], 1)}
+    x = batch["embeds"]
+    out = {"embeds": torch.cat(
+        [x, L.embed(model.embed, tok, model.cfg).to(x.dtype)], 1)}
+    if "positions" in batch:
+        p = batch["positions"]
+        out["positions"] = torch.cat(
+            [p, torch.full_like(p[..., :1], x.shape[1])], -1)
+    return out
+
+
+def card_vs_cpu(torch, model, prompts, n_decode, label):
+    """A float32 ``model`` on the card against its copy on the CPU: greedy
+    runs of ``prompts`` (tokens or a batch, as ``greedy_run`` takes them),
+    the CPU fed the card's tokens.  The logits must agree within
+    LOGIT_TOL_F32 and the tokens wherever the top-2 margin exceeds it.
+    Returns the largest difference."""
+    import copy
+    cpu = copy.deepcopy(model).to("cpu")
+    cpu_prompts = ({k: v.cpu() for k, v in prompts.items()}
+                   if isinstance(prompts, dict) else prompts.cpu())
+    lg_gpu, tk_gpu = greedy_run(torch, model, prompts, n_decode)
+    lg_cpu, tk_cpu = greedy_run(torch, cpu, cpu_prompts, n_decode,
+                                feed=tk_gpu.cpu())
+    d_cpu = float((lg_gpu.cpu() - lg_cpu).abs().max())
+    top2 = lg_cpu.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL_F32
+    same = bool((tk_gpu.cpu() == tk_cpu)[decided].all())
+    print(f"[serve] {label} float32, card vs CPU: max|d logit| = "
+          f"{d_cpu:.3e} (need <= {LOGIT_TOL_F32}); tokens equal where the "
+          f"top-2 margin > {LOGIT_TOL_F32}: {same} "
+          f"({int(decided.sum())} of {decided.numel()} decided)")
+    check(d_cpu <= LOGIT_TOL_F32, f"{label}: card vs CPU logits {d_cpu}")
+    check(same, f"{label}: greedy tokens differ between the card and the "
+                f"CPU")
+    return d_cpu
+
+
 def serving_path(torch):
     """Phase 7; returns the model, the launch counts and the checks'
     numbers."""
-    import copy
     import dataclasses
     from repro_torch import configs
     from repro_torch.launch import serve
@@ -773,17 +946,14 @@ def serving_path(torch):
     check(n_params == cfg.param_count(), "parameter count")
 
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters:
-        fn.launches = 0
-    linear_recurrence.launches_by_kernel = dict.fromkeys(
-        linear_recurrence.launches_by_kernel, 0)
+    zero_counts(counters)
     t0 = time.perf_counter()
     records = serve.serve(cfg, model, batches=BATCHES, batch_size=BATCH,
                           prompt_len=PROMPT, n_decode=N_DECODE,
                           device="cuda")
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = counts(counters)
     rec_kernels = dict(linear_recurrence.launches_by_kernel)
     peak_bytes = torch.cuda.max_memory_allocated()
     n_attn = model.kinds.count("local_attn")
@@ -810,6 +980,23 @@ def serving_path(torch):
         check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
               "tokens out of the vocabulary")
 
+    # one more batch on a pod that has run ROTATE_AGE hours: the reuse
+    # policy denies it, so PreemptionSource.replace_pod draws a fresh
+    # lifetime on the card before the batch runs
+    zero_counts(counters)
+    rot = serve.serve(cfg, model, batches=1, batch_size=2, prompt_len=256,
+                      n_decode=4, device="cuda", start_hours=ROTATE_AGE)[0]
+    rot_launches = counts(counters)
+    rot_want = {"flash_attention": n_attn, "decode_attention": 3 * n_attn,
+                "linear_recurrence": 4 * n_rec}
+    print(f"[serve] a batch on a pod aged {ROTATE_AGE} h: rotated "
+          f"{rot['rotated']}, pod age after it {rot['pod_age']:.4f} h; "
+          f"launches {rot_launches}, expected {rot_want}")
+    check(rot["rotated"], "the reuse policy kept a pod near its deadline")
+    check(abs(rot["pod_age"] - serve.EST_JOB_HOURS) < 1e-9,
+          "the rotated pod's age did not restart at 0")
+    check(rot_launches == rot_want, f"rotation batch launches {rot_launches}")
+
     # every logit of one served batch, and decode step 1 against a full
     # forward over the prompt and the first generated token, in bf16 and,
     # with the same weights held in float32, in float32 (B = 2)
@@ -831,26 +1018,99 @@ def serving_path(torch):
     check(bool(torch.equal(model3.layers[0]["in_x"].bfloat16(),
                            model.layers[0]["in_x"])),
           "the 3-layer model does not share the full model's weights")
-    cpu3 = copy.deepcopy(model3).to("cpu")
     p3 = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 64)), device="cuda")
-    lg_gpu, tk_gpu = greedy_run(torch, model3, p3, 8)
-    lg_cpu, tk_cpu = greedy_run(torch, cpu3, p3.cpu(), 8, feed=tk_gpu.cpu())
-    d_cpu = float((lg_gpu.cpu() - lg_cpu).abs().max())
-    top2 = lg_cpu.topk(2, dim=-1).values
-    decided = (top2[..., 0] - top2[..., 1]) > LOGIT_TOL_F32
-    same = bool((tk_gpu.cpu() == tk_cpu)[decided].all())
-    print(f"[serve] 3 layers float32, card vs CPU: max|d logit| = "
-          f"{d_cpu:.3e} (need <= {LOGIT_TOL_F32}); tokens equal where the "
-          f"top-2 margin > {LOGIT_TOL_F32}: {same} "
-          f"({int(decided.sum())} of {decided.numel()} decided)")
-    check(d_cpu <= LOGIT_TOL_F32, f"card vs CPU logits {d_cpu}")
-    check(same, "greedy tokens differ between the card and the CPU")
-    del model3, cpu3
+    d_cpu = card_vs_cpu(torch, model3, p3, 8, "3 layers")
+    del model3
     return model, launches, {"serve_s": serve_s, "peak_bytes": peak_bytes,
                              "decode_vs_full_max_abs": d_full,
                              "decode_vs_full_f32_max_abs": d_full32,
                              "card_vs_cpu_max_abs": d_cpu}
+
+
+def with_bound(r):
+    """Add ``bound_ms`` and ``bound_by`` to a kernel's timing ``r``: the
+    larger of its operations at the bf16 tensor peak and its bytes at the
+    memory rate."""
+    t_ops = r["ops"] / BF16_TENSOR_OPS * 1e3
+    t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+    r["bound_ms"] = max(t_ops, t_bytes)
+    r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    return r
+
+
+def flash_pair_times(torch, q, k, v, out, lse, dout, window=0):
+    """The flash forward (with LSE) and backward on these bf16 causal
+    inputs: CUDA-graph replays beside the plain versions, SDPA's forward
+    and backward, the bound (4 D and 10 D operations a visible pair)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    B, S, H, D = q.shape
+    pairs = S * (S + 1) // 2
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    dout_t = dout.transpose(1, 2)
+    elt = q.element_size()
+    fwd = with_bound({
+        "ms": graph_ms(torch, [lambda: flash_attention(
+            q, k, v, window=window, return_lse=True)] * 3),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(
+            q, k, v, window=window, return_lse=True)),
+        "library_ms": graph_ms(torch, [
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)] * 3),
+        "ops": 4 * D * pairs * B * H,
+        "bytes": (2 * q.numel() + 2 * k.numel()) * elt + lse.numel() * 4})
+    bwd = with_bound({
+        "ms": graph_ms(torch, [lambda: flash_attention_bwd(
+            q, k, v, out, lse, dout, window=window)] * 3),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_plain(
+            q, k, v, out, lse, dout, window=window)),
+        "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dout_t, retain_graph=True)),
+        "ops": 10 * D * pairs * B * H,
+        "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4})
+    return fwd, bwd
+
+
+def serve_times(torch, model, batch, n_decode):
+    """Prefill ms (time to first token; median of 5 after a warm-up) and
+    decode ms a step (median of 5 runs of ``n_decode - 1`` greedy steps,
+    after one) of a prefill ``batch``; also the two calls timed:
+    ``first_token()`` returns (token, cache), ``decode_rest(token,
+    cache)`` runs the steps."""
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    B, S = batch["tokens" if "tokens" in batch else "embeds"].shape[:2]
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+
+    def first_token():
+        cache = model.init_cache(B, S + n_decode)
+        logits, cache = prefill(model, cache, batch)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+
+    def decode_rest(tok, cache):
+        for _ in range(n_decode - 1):
+            _, tok, cache = decode(model, cache, {"tokens": tok[:, None]})
+
+    prefill_ms = host_ms(torch, first_token)
+    step_ms = []
+    for _ in range(6):                       # the first is the warm-up
+        tok, cache = first_token()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        decode_rest(tok, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / (n_decode - 1))
+    decode_ms = statistics.median(step_ms[1:])
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_tokens_per_s": B / (decode_ms / 1e3),
+            "decode_steps_ms": step_ms[1:]}, first_token, decode_rest
 
 
 def serving_timing(torch, model, main_inputs):
@@ -862,29 +1122,10 @@ def serving_timing(torch, model, main_inputs):
                                                      flash_attention_plain)
     from repro_torch.kernels.rglru_scan import (linear_recurrence,
                                                 linear_recurrence_plain)
-    from repro_torch.launch import steps
-    cfg = model.cfg
     prompts = torch.as_tensor(np.random.default_rng(2).integers(
-        0, cfg.vocab_size, (BATCH, PROMPT)), device="cuda")
-    prefill = steps.make_prefill_step(cfg)
-    decode = steps.make_decode_step(cfg)
-
-    def first_token():
-        cache = model.init_cache(BATCH, PROMPT + N_DECODE)
-        logits, cache = prefill(model, cache, {"tokens": prompts})
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
-
-    prefill_ms = host_ms(torch, first_token)
-    step_ms = []
-    for _ in range(6):                       # the first is the warm-up
-        tok, cache = first_token()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(N_DECODE - 1):
-            _, tok, cache = decode(model, cache, {"tokens": tok[:, None]})
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3 / (N_DECODE - 1))
-    decode_ms = statistics.median(step_ms[1:])
+        0, model.cfg.vocab_size, (BATCH, PROMPT)), device="cuda")
+    serving, first_token, decode_rest = serve_times(
+        torch, model, {"tokens": prompts}, N_DECODE)
 
     # Device times from CUDA-graph replays (graph_ms), and for the kernels
     # also the eager time of one call, the Python wrapper included.  The
@@ -965,10 +1206,7 @@ def serving_timing(torch, model, main_inputs):
     for name, r in (("flash_attention", flash),
                     ("decode_attention", decode_k),
                     ("linear_recurrence", rec)):
-        t_ops = r["ops"] / BF16_TENSOR_OPS * 1e3
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        with_bound(r)
         print(f"[timing] {name}: {r['ms']:.4f} ms (eager call "
               f"{r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
               f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
@@ -977,10 +1215,6 @@ def serving_timing(torch, model, main_inputs):
           f"{flash['bound_fp32_ms']:.3f} ms; recurrence at S = 1 "
           f"{rec['decode_step_ms']:.4f} ms (eager call "
           f"{rec['decode_step_eager_ms']:.4f} ms)")
-    serving = {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
-               "decode_tokens_per_s": BATCH / (decode_ms / 1e3),
-               "decode_steps_ms": step_ms[1:]}
-
     # where the time goes: one prefill and one batch's decode steps under
     # the profiler (device busy share = summed kernel time / wall time)
     box = {}
@@ -989,9 +1223,7 @@ def serving_timing(torch, model, main_inputs):
         box["tok"], box["cache"] = first_token()
 
     def decode_all():
-        tok, cache = box["tok"], box["cache"]
-        for _ in range(N_DECODE - 1):
-            _, tok, cache = decode(model, cache, {"tokens": tok[:, None]})
+        decode_rest(box["tok"], box["cache"])
 
     for label, fn in (("prefill", prefill_once), ("decode", decode_all)):
         wall, dev_ms, rows = profile_window(torch, fn)
@@ -1070,13 +1302,12 @@ def service_path(torch, counters):
     from repro_torch.core import scenarios, service, service_kernel as SK
     grid = scenarios.default_grid()
     sweep_kw = dict(SVC_SWEEP, device="cuda")
-    for fn in counters:
-        fn.launches = 0
+    zero_counts(counters)
     t0 = time.perf_counter()
     rows = scenarios.sweep_service(grid, **sweep_kw)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = counts(counters)
     print(f"[service] sweep_service: {len(rows)} rows (8 scenarios x "
           f"{len(SVC_POLICIES)} policies x {len(SVC_SEEDS)} seeds, "
           f"{SVC_JOBS} jobs of ~{SVC_HOURS} h, cluster {SVC_CLUSTER}) in "
@@ -2137,23 +2368,16 @@ def training_path(torch, work):
           f"{TRAIN_BATCH} x {TRAIN_SEQ}; {TRAIN_STEPS} steps at "
           f"sim_hours_per_step {TRAIN_SIM_H}, preemption_seed "
           f"{TRAIN_PREEMPT_SEED}, policy {tc.ckpt_policy}")
-    for fn in (dp_recurrence, flash_attention, flash_attention_bwd,
-               decode_attention):
-        fn.launches = 0
-    linear_recurrence.launches_by_kernel = dict.fromkeys(
-        linear_recurrence.launches_by_kernel, 0)
+    fns = (dp_recurrence, flash_attention, flash_attention_bwd,
+           decode_attention, linear_recurrence)
+    zero_counts(fns)
     t0 = time.perf_counter()
     res = train(cfg, tc, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                 inject_preemptions=True, log_every=10, device="cuda",
                 **run_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"dp_recurrence": dp_recurrence.launches,
-                "flash_attention": flash_attention.launches,
-                "flash_attention_bwd": flash_attention_bwd.launches,
-                "decode_attention": decode_attention.launches,
-                "linear_recurrence": sum(
-                    linear_recurrence.launches_by_kernel.values())}
+    launches = counts(fns)
     written = dir_bytes(tc.ckpt_dir)
     n = res.steps_run
     print(f"[train] {n} steps in {wall:.1f} s; restarts {res.restarts}, "
@@ -2276,15 +2500,11 @@ def training_timing(torch, bwd_inputs, smi, work):
     FLOPs, the flash pair's kernel times beside their plain versions,
     bounds and SDPA, the manager's solve / plan / save / restore, and one
     step under torch.profiler."""
-    import torch.nn.functional as F
     from repro_torch import configs
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import distributions
     from repro_torch.data import SyntheticLM
-    from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
-        flash_attention_plain)
     from repro_torch.launch import steps
     from repro_torch.models import transformer as T
     from repro_torch.optim import adamw_init
@@ -2326,31 +2546,7 @@ def training_timing(torch, bwd_inputs, smi, work):
     (q, k, v, out, lse, dout), window = bwd_inputs
     B, S, _, _ = q.shape
     KV = k.shape[2]
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                             enable_gqa=True)
-    dout_t = dout.transpose(1, 2)
-    elt = q.element_size()
-    fwd = {
-        "ms": graph_ms(torch, [lambda: flash_attention(
-            q, k, v, window=window, return_lse=True)] * 3),
-        "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(
-            q, k, v, window=window, return_lse=True)),
-        "library_ms": graph_ms(torch, [
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)] * 3),
-        "ops": 4 * D * pairs * B * H,
-        "bytes": (2 * q.numel() + 2 * k.numel()) * elt + lse.numel() * 4}
-    bwd = {
-        "ms": graph_ms(torch, [lambda: flash_attention_bwd(
-            q, k, v, out, lse, dout, window=window)] * 3),
-        "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_plain(
-            q, k, v, out, lse, dout, window=window)),
-        "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dout_t, retain_graph=True)),
-        "ops": 10 * D * pairs * B * H,
-        "bytes": (4 * q.numel() + 4 * k.numel()) * elt + lse.numel() * 4}
+    fwd, bwd = flash_pair_times(torch, q, k, v, out, lse, dout, window)
     # the float32 kernels' arithmetic on the CUDA cores: the forward's 4 D a
     # pair, the backward's 14 D (S and dP in both of its kernels)
     fwd["fp32_bound_ms"] = fwd["ops"] / fp32_peak_ops(torch)[0] * 1e3
@@ -2359,10 +2555,6 @@ def training_timing(torch, bwd_inputs, smi, work):
     issued = BWD_ISSUED_OPS_PER_PAIR * D * pairs * B * H
     for name, r in (("flash_attention (train, with LSE)", fwd),
                     ("flash_attention_bwd", bwd)):
-        t_ops = r["ops"] / BF16_TENSOR_OPS * 1e3
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        r["bound_ms"] = max(t_ops, t_bytes)
-        r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         print(f"[timing] {name} at {tuple(q.shape)} KV {KV}: {r['ms']:.4f} "
               f"ms, plain {r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f}"
               f" ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
@@ -2374,7 +2566,6 @@ def training_timing(torch, bwd_inputs, smi, work):
           f" ms at the bf16 tensor peak) against the bound's 10 D; share "
           f"of bound {bwd['bound_ms'] / bwd['ms']:.2%}")
     timing["flash_fwd_ms"], timing["flash_bwd_ms"] = fwd["ms"], bwd["ms"]
-    del lib_out
 
     # the manager: the DP solve (and its first plan), one plan's host read
     # of K, a blocking save and a restore of the full training state
@@ -2549,7 +2740,7 @@ def fig7_phase(torch, dp_recurrence, dp_recurrence_plain):
                 for p in ("dp", "young_daly", "none")])
     ex_kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA,
                  max_restarts=MAX_RESTARTS)
-    overhead, worst, pools_equal = {}, 0.0, 0
+    overhead, worst, pools_equal, pool_worst = {}, 0.0, 0, 0.0
     for fig, age, J, p in cells:
         table, fn = pol[p]
         mk = engine.simulate_makespan_engine(
@@ -2572,8 +2763,10 @@ def fig7_phase(torch, dp_recurrence, dp_recurrence_plain):
         first_c, pool_c = engine.draw_lifetime_pool(
             lf_cpu, FIG7_TRIALS, max_restarts=MAX_RESTARTS, seed=FIG7_SEED,
             start_age=age)
-        pools_equal += bool(torch.equal(first.cpu(), first_c)
-                            and torch.equal(pool.cpu(), pool_c))
+        rel, same = pool_rel_err(torch, (first, pool), (first_c, pool_c),
+                                 label)
+        pools_equal += same
+        pool_worst = max(pool_worst, rel)
         mean = float(mk.mean())
         overhead[fig, age, J, p] = 100.0 * (mean / (J * DT_MAIN) - 1.0)
         if p == "dp":
@@ -2585,7 +2778,8 @@ def fig7_phase(torch, dp_recurrence, dp_recurrence_plain):
           f"to simulate_makespan and to the CPU executor on the same pool; "
           f"worst |DP mean - V| / V = {worst:.4%}; pools drawn on the CPU "
           f"bit-identical to the card's in {pools_equal} of {len(cells)} "
-          f"cells")
+          f"cells, within {pool_worst:.3e} relative in all (need <= "
+          f"{POOL_RTOL})")
     for age in FIG7_AGES:
         print(f"[fig7] 7a overhead, 4 h job from age {age:g} h: dp "
               f"{overhead['7a', age, j4, 'dp']:.2f} %, young_daly "
@@ -2648,6 +2842,345 @@ def modes_timing(torch, sweep_kw, smi):
     return timing
 
 
+# ---------------------------------------------------------------------------
+# embeddings input and M-RoPE: musicgen-medium and qwen2-vl-2b, and the two
+# 33-34 B dense archs at reduced depth
+# ---------------------------------------------------------------------------
+
+def mrope_streams(torch, B, S):
+    """(3, B, S) int32 M-RoPE position ids on the card: t = s, h = s // 32,
+    w = s % 32, three distinct streams (with equal ones M-RoPE is RoPE)."""
+    s = torch.arange(S, dtype=torch.int32, device="cuda")
+    return torch.stack([s, s // 32, s % 32])[:, None].expand(3, B, S) \
+        .contiguous()
+
+
+def embeds_batch(torch, cfg, B, S, gen, dtype):
+    """A prefill batch of seeded embeddings (B, S, d_model), of the
+    embedding table's scale, and (3, B, S) positions under M-RoPE."""
+    x = 0.02 * torch.randn((B, S, cfg.d_model), generator=gen,
+                           device="cuda")
+    batch = {"embeds": x.to(dtype)}
+    if cfg.pos_type == "mrope":
+        batch["positions"] = mrope_streams(torch, B, S)
+    return batch
+
+
+def phase19_serving(torch, arch, n_layers=None):
+    """Phase 19a: ``arch`` at full width (and depth, unless ``n_layers``)
+    through the port's prefill and decode steps: 8 x 2048 inputs (seeded
+    bf16 embeddings, and distinct M-RoPE streams, for an embeds-input arch;
+    token prompts otherwise), 31 greedy decode steps fed back through the
+    embedding table at default positions, with the kernels' counts reset
+    just before and read just after.  Checks the launches, every logit
+    finite and decode step 1 against a full forward; for an embeds-input
+    arch also the card against the CPU at 2 layers in float32, and the
+    serving times.  Returns the model, the launches and the numbers."""
+    from repro_torch import configs
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.dp_recurrence import dp_recurrence
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru_scan import linear_recurrence
+    from repro_torch.models import transformer as T
+    fns = (flash_attention, decode_attention, flash_attention_bwd,
+           linear_recurrence, dp_recurrence)
+    cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    t0 = time.perf_counter()
+    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[p19] {arch}: {cfg.n_layers} layers"
+          f"{'' if n_layers is None else ' (depth cut)'}, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_variant}), vocab "
+          f"{cfg.vocab_size}, pos {cfg.pos_type}, tied "
+          f"{cfg.tie_embeddings}; {n_params / 1e9:.3f} B parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, drawn "
+          f"in {time.perf_counter() - t0:.3f} s")
+    check(n_params == cfg.param_count(), f"{arch}: parameter count")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    if cfg.embeds_input:
+        batch = embeds_batch(torch, cfg, P19_BATCH, P19_PROMPT, gen,
+                             torch.bfloat16)
+    else:
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (P19_BATCH, P19_PROMPT), generator=gen,
+            device="cuda")}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    logits, toks = greedy_run(torch, model, batch, P19_DECODE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(fns)
+    L_ = cfg.n_layers
+    want = {"flash_attention": L_, "decode_attention": L_ * (P19_DECODE - 1),
+            "flash_attention_bwd": 0, "linear_recurrence": 0,
+            "dp_recurrence": 0}
+    print(f"[p19] {arch} serving: prefill of {P19_BATCH} x {P19_PROMPT} "
+          f"{'embeddings' if cfg.embeds_input else 'tokens'}"
+          f"{' with 3 M-RoPE streams' if 'positions' in batch else ''} and "
+          f"{P19_DECODE - 1} greedy decode steps in {wall:.2f} s; launches "
+          f"{launches}, expected {want}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(launches == want, f"{arch}: launch counts {launches} != {want}")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"{arch}: tokens out of the vocabulary")
+    d_full = decode_vs_full(torch, model, batch, LOGIT_TOL_BF16)
+    out = {"serve_wall_s": wall, "decode_vs_full_max_abs": d_full,
+           "params": n_params}
+    if not cfg.embeds_input:
+        return model, launches, out
+
+    # 2 layers at full width in float32: the card against the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=P19_CPU_LAYERS,
+                               compute_dtype="float32")
+    model2 = T.init(cfg2, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    b2 = embeds_batch(torch, cfg2, 2, 64, gen, torch.float32)
+    out["card_vs_cpu_max_abs"] = card_vs_cpu(
+        torch, model2, b2, 8, f"{arch} {P19_CPU_LAYERS} layers")
+    del model2
+
+    # serving times: prefill (time to first token) and decode per step
+    times, first_token, decode_rest = serve_times(torch, model, batch,
+                                                  P19_DECODE)
+    out.update(times)
+    tok, cache = first_token()
+    wall_d, dev_d, _ = profile_window(torch, lambda: decode_rest(tok, cache))
+    out["decode_device_busy_share"] = None if dev_d is None else dev_d / wall_d
+    print(f"[p19] {arch} serving timing: prefill {out['prefill_ms']:.2f} ms, "
+          f"decode {out['decode_ms_per_step']:.3f} ms a step "
+          f"({out['decode_tokens_per_s']:.1f} tokens/s), decode device busy "
+          f"share {out['decode_device_busy_share']}")
+    return model, launches, out
+
+
+def phase19_training(torch, arch):
+    """Phase 19b: ``arch`` at full width and depth through
+    ``steps.make_train_step`` (bf16 compute, float32 master weights,
+    remat) on seeded embeddings, labels, a mask and, under M-RoPE, three
+    distinct position streams, 8 x 2048.  Checks the launches of one step
+    (counts reset just before, read just after), the loss finite, a
+    ``grad_accum=2`` step, and at 2 layers, full width, float32, B 2, S
+    256 the card's loss and gradients against the CPU's.  Times the step,
+    its peak memory, model FLOPs and busy share."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.dp_recurrence import dp_recurrence
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru_scan import linear_recurrence
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    fns = (flash_attention, decode_attention, flash_attention_bwd,
+           linear_recurrence, dp_recurrence)
+    cfg = configs.get(arch)
+    tc = TrainConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda", trainable=True)
+    params = dict(model.named_parameters())
+    box = {"opt": adamw_init(params)}
+    gen = torch.Generator(device="cuda").manual_seed(191)
+    B, S = P19_BATCH, P19_PROMPT
+    batch = embeds_batch(torch, cfg, B, S, gen, torch.bfloat16)
+    batch["labels"] = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device="cuda")
+    batch["mask"] = (torch.rand((B, S), generator=gen, device="cuda")
+                     > 0.1).float()
+    step_fn = steps.make_train_step(cfg, tc)
+
+    def one_step(fn=step_fn):
+        _, box["opt"], box["m"] = fn(model, box["opt"], batch)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    one_step()
+    torch.cuda.synchronize()
+    launches = counts(fns)
+    peak = torch.cuda.max_memory_allocated()
+    L_ = cfg.n_layers
+    want = {"flash_attention": 2 * L_, "flash_attention_bwd": L_,
+            "decode_attention": 0, "linear_recurrence": 0,
+            "dp_recurrence": 0}
+    loss = float(box["m"]["loss"])
+    print(f"[p19] {arch} train step on {B} x {S} embeddings"
+          f"{' with 3 M-RoPE streams' if 'positions' in batch else ''}: "
+          f"loss {loss:.4f}, grad norm {float(box['m']['grad_norm']):.4f}; "
+          f"launches {launches}, expected {want} (forward + remat's "
+          f"recompute, one backward a layer); peak {peak / 1e9:.2f} GB "
+          f"(need <= {P19_PEAK_LIMIT / 1e9:.0f})")
+    check(launches == want, f"{arch}: train launches {launches} != {want}")
+    check(np.isfinite(loss), f"{arch}: the loss is not finite")
+    check(peak <= P19_PEAK_LIMIT, f"{arch}: the step's peak {peak} passes "
+                                  f"{P19_PEAK_LIMIT}: halve its batch")
+    accum_fn = steps.make_train_step(
+        cfg, dataclasses.replace(tc, grad_accum=2))
+    zero_counts(fns)
+    one_step(accum_fn)
+    torch.cuda.synchronize()
+    acc_launches = counts(fns)
+    acc_loss = float(box["m"]["loss"])
+    print(f"[p19] {arch} grad_accum=2 step (microbatches of {B // 2} rows"
+          f"{', positions cut along their batch axis' if 'positions' in batch else ''}"
+          f"): loss {acc_loss:.4f}; launches {acc_launches}")
+    check(np.isfinite(acc_loss), f"{arch}: grad_accum=2 loss not finite")
+    check(acc_launches["flash_attention_bwd"] == 2 * L_,
+          f"{arch}: grad_accum=2 backward launches {acc_launches}")
+
+    # timing: the step, its model FLOPs, one profiled step
+    step_ms = host_ms(torch, one_step)
+    tokens = B * S
+    n_params = sum(p.numel() for p in params.values())
+    pairs = S * (S + 1) // 2
+    attn_flops = 12 * cfg.head_dim * pairs * B * cfg.n_heads * L_
+    flops = 6 * n_params * tokens + attn_flops
+    timing = {"train_step_ms": step_ms,
+              "tokens_per_s": tokens / (step_ms / 1e3),
+              "peak_device_bytes": peak, "params": n_params,
+              "model_flops_per_step": flops,
+              "bf16_tensor_peak_share": flops / (step_ms / 1e3)
+              / BF16_TENSOR_OPS}
+    wall, dev_ms, rows = profile_window(torch, one_step, top=6)
+    timing["step_device_busy_share"] = None if dev_ms is None \
+        else dev_ms / wall
+    print(f"[p19] {arch} train step {step_ms:.2f} ms, "
+          f"{timing['tokens_per_s']:.0f} tokens/s, "
+          f"{timing['bf16_tensor_peak_share']:.2%} of the bf16 tensor peak; "
+          f"profiled step wall {wall:.2f} ms, device busy {dev_ms} ms; "
+          f"device events:")
+    for name, ms, calls in rows:
+        print(f"[profile] {arch} train {ms:9.3f} ms  {calls:5d} x  {name}")
+    del model, params, box, batch
+    torch.cuda.empty_cache()
+
+    # 2 layers at full width, float32: the card against the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=P19_CPU_LAYERS,
+                               compute_dtype="float32")
+    cpu = T.init(cfg2, torch.Generator().manual_seed(0), device="cpu",
+                 trainable=True)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    b2 = embeds_batch(torch, cfg2, 2, 256, gen, torch.float32)
+    b2["labels"] = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
+                                 device="cuda")
+    b2["mask"] = torch.ones((2, 256), device="cuda")
+    got = steps.value_and_grad(gpu, b2)
+    want_ = steps.value_and_grad(cpu, {k: v.cpu() for k, v in b2.items()})
+    d_loss = abs(float(got[0]) - float(want_[0])) / abs(float(want_[0]))
+    worst = 0.0
+    for (name, _), gg, gc in zip(cpu.named_parameters(), got[2], want_[2]):
+        excess = float(((gg.cpu() - gc).abs()
+                        - (1e-6 + 1e-4 * gc.abs())).max())
+        worst = max(worst, float(((gg.cpu() - gc).abs()
+                                  / (1e-6 + 1e-4 * gc.abs())).max()))
+        check(excess <= 0, f"{arch}: card vs CPU grad {name} beyond atol "
+                           f"1e-6 + rtol 1e-4")
+    print(f"[p19] {arch} {P19_CPU_LAYERS} layers float32, B 2, S 256, card "
+          f"vs CPU: loss {float(got[0]):.7f} / {float(want_[0]):.7f} "
+          f"(relative {d_loss:.3e}, need <= 1e-6); gradients at worst "
+          f"{worst:.3f} of atol 1e-6 + rtol 1e-4")
+    check(d_loss <= 1e-6, f"{arch}: card vs CPU loss differs by {d_loss}")
+    timing.update(card_vs_cpu_loss_rel=d_loss, card_vs_cpu_grad_worst=worst)
+    return launches, acc_launches, timing
+
+
+def phase19_kernels(torch, cfg):
+    """Phase 19c: the flash forward (with LSE), the flash backward and
+    decode attention at ``cfg``'s attention shape (bf16, causal, 8 x 2048,
+    decode over a cache of 2048 + 32 slots at length 2049), by CUDA-graph
+    replays beside the plain versions, SDPA and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(192)
+    B, S, H, KV, D = P19_BATCH, P19_PROMPT, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, dout = normal(B, S, H, D), normal(B, S, H, D)
+    k, v = normal(B, S, KV, D), normal(B, S, KV, D)
+    out, lse = flash_attention(q, k, v, return_lse=True)
+    r = dict(zip(("flash_attention", "flash_attention_bwd"),
+                 flash_pair_times(torch, q, k, v, out, lse, dout)))
+    del q, k, v, out, lse, dout
+    # decode step 1: every row at length S + 1 over a cache of S + 32
+    # slots; 4 copies of the cache rotated, as each layer's cache is cold
+    Sc = S + P19_DECODE
+    lengths = torch.full((B,), S + 1, dtype=torch.int32, device="cuda")
+    dec = [(normal(B, H, D), normal(B, Sc, KV, D), normal(B, Sc, KV, D),
+            lengths) for _ in range(4)]
+    valid = (torch.arange(Sc, device="cuda")[None, :]
+             < lengths[:, None])[:, None, None, :]
+    lib = [(x[0][:, :, None], x[1].transpose(1, 2), x[2].transpose(1, 2))
+           for x in dec]
+    n_valid = int(lengths.sum())
+    elt = 2
+    r["decode_attention"] = with_bound({
+        "ms": graph_ms(torch, [lambda x=x: decode_attention(*x)
+                               for x in dec]),
+        "plain_ms": graph_ms(torch, [lambda x=x: decode_attention_plain(*x)
+                                     for x in dec]),
+        "library_ms": graph_ms(torch, [
+            lambda x=x: F.scaled_dot_product_attention(
+                *x, attn_mask=valid, enable_gqa=True) for x in lib]),
+        "ops": 4 * D * n_valid * H,
+        "bytes": 2 * B * H * D * elt + 2 * n_valid * KV * D * elt
+        + lengths.numel() * 4})
+    for name, t in r.items():
+        print(f"[timing] {cfg.name} {name} (B {B}, S {S}, H {H}, KV {KV}, "
+              f"D {D}): {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA "
+              f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['ops']:.4g} ops, {t['bytes']:.4g} B), "
+              f"{t['bound_ms'] / t['ms']:.1%} of it")
+    del dec, lib
+    torch.cuda.empty_cache()
+    return r
+
+
+def embeds_phase(torch, smi):
+    """Phase 19: musicgen-medium and qwen2-vl-2b at full width and depth,
+    serving and training, and their attention kernels' times; yi-34b and
+    deepseek-coder-33b at full width and reduced depth, serving.  Returns
+    the launches by path and the kernel times by model."""
+    t19 = time.perf_counter()
+    by_path, ktimes = {}, {}
+    for arch, key in P19_ARCHS:
+        model, serve_l, serve_t = phase19_serving(torch, arch)
+        cfg = model.cfg
+        del model
+        torch.cuda.empty_cache()
+        train_l, accum_l, train_t = phase19_training(torch, arch)
+        ktimes[key] = phase19_kernels(torch, cfg)
+        by_path[key] = {"serving": serve_l, "training": train_l,
+                        "training_grad_accum_2": accum_l}
+        print(f"[timing] {arch} " + json.dumps(
+            {"serving": serve_t, "training": train_t, "card": smi}))
+    for arch, n_layers in P19_DEPTH_CUT:
+        model, serve_l, serve_t = phase19_serving(torch, arch, n_layers)
+        del model
+        torch.cuda.empty_cache()
+        by_path[arch] = {"serving": serve_l}
+        print(f"[timing] {arch} at {n_layers} layers " + json.dumps(
+            {"serving": serve_t, "card": smi}))
+    print(f"[p19] phase 19 took {time.perf_counter() - t19:.1f} s")
+    return by_path, ktimes
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2669,6 +3202,14 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.dp_recurrence import (dp_recurrence,
                                                    dp_recurrence_plain)
+
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Record the seconds since the last mark as phase ``name``'s."""
+        now = time.perf_counter()
+        phase_s[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
 
     # -- 1. device ----------------------------------------------------------
     device_name = torch.cuda.get_device_name(0)
@@ -2704,6 +3245,8 @@ def main() -> int:
         if counts is not None:
             check(counts[op] > 0, f"{kname}: no {op} in its SASS")
 
+    mark("1-2")
+
     # -- 3. kernel against its plain version ------------------------------
     grid = scenarios.default_grid()
     dists = [sc.dist() for sc in grid]
@@ -2729,6 +3272,8 @@ def main() -> int:
                           delta=DELTA_ALT), k_min,
                 f"{objective} J={J_MAIN} delta={DELTA_ALT}", repeats=2)
     exact_ties(torch, grids, dp_recurrence, dp_recurrence_plain)
+
+    mark("3")
 
     # -- 4. the main path ---------------------------------------------------
     sweep_kw = dict(seeds=SEEDS, job_steps=J_MAIN, n_trials=N_TRIALS,
@@ -2781,6 +3326,16 @@ def main() -> int:
           "executor makespans differ between cuda and cpu on one pool")
     print(f"[main] executor float64 makespans bit-identical cuda vs cpu "
           f"({mk_gpu.size} trials)")
+    pool_rel, pool_same = pool_rel_err(
+        torch, (first, pool), engine.draw_lifetime_pool_batch(
+            dists[:1], N_TRIALS, max_restarts=MAX_RESTARTS, seed=[0],
+            device="cpu"), "main path")
+    print(f"[main] the pool drawn on the card against the one drawn on the "
+          f"CPU ({pool.numel() + first.numel()} lifetimes): max relative "
+          f"difference {pool_rel:.3e} (need <= {POOL_RTOL}); bit-identical "
+          f"{pool_same}")
+
+    mark("4")
 
     # -- 5. timing ----------------------------------------------------------
     before = dp_recurrence.launches
@@ -2847,11 +3402,17 @@ def main() -> int:
         "library_ms": None,
     }
 
+    mark("5")
+
     # -- 6. serving kernels against their plain versions ---------------------
     errs, main_inputs = serving_kernels_vs_plain(torch)
 
+    mark("6")
+
     # -- 7. the serving path -------------------------------------------------
     model, serve_launches, serve_checks = serving_path(torch)
+
+    mark("7")
 
     # -- 8. serving timing ---------------------------------------------------
     serving, ktimes = serving_timing(torch, model, main_inputs)
@@ -2861,6 +3422,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    mark("8")
+
     # -- 9. the batch service (Fig. 8) ---------------------------------------
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2869,31 +3432,46 @@ def main() -> int:
         torch, (dp_recurrence, flash_attention, decode_attention,
                 linear_recurrence))
 
+    mark("9")
+
     # -- 10. service timing -------------------------------------------------
     service_timing(torch, svc_kw, svc_res, smi)
+
+    mark("10")
 
     # -- 11. the market path ------------------------------------------------
     mkt_inputs, mkt_launches = market_path(torch, dp_recurrence)
     kernel["launches_by_path"] = {"checkpointing": launches,
                                   "market": mkt_launches}
 
+    mark("11")
+
     # -- 12. market timing --------------------------------------------------
     market_timing(torch, mkt_inputs, smi)
 
+    mark("12")
+
     # -- 13. the Eq. 1 fit --------------------------------------------------
     fit_phase(torch, smi)
+
+    mark("13")
 
     # -- 14. refinement -----------------------------------------------------
     kernel["launches_by_path"]["refine"] = refine_phase(
         torch, dp_recurrence, dp_recurrence_plain, mkt_inputs, sweep_kw, smi)
 
+    mark("14")
+
     # -- 15. the closed loop ------------------------------------------------
     kernel["launches_by_path"]["runtime"] = runtime_phase(
         torch, dp_recurrence, dp_recurrence_plain, smi)
 
+    mark("15")
+
     # -- 16. the flash backward against its plain version ------------------
     bwd_err, bwd_inputs = flash_bwd_vs_plain(torch)
 
+    mark("16")
     work = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         # -- 17a. the training path --------------------------------------
@@ -2907,6 +3485,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    mark("17")
+
     # -- 18. the sweep modes and Fig. 7 ------------------------------------
     t18 = time.perf_counter()
     kernel["launches_by_path"].update(
@@ -2914,6 +3494,12 @@ def main() -> int:
         fig7=fig7_phase(torch, dp_recurrence, dp_recurrence_plain))
     modes_timing(torch, sweep_kw, smi)
     print(f"[modes] phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    mark("18")
+
+    # -- 19. embeddings input and M-RoPE; the 33-34 B archs cut in depth --
+    p19_launches, p19_times = embeds_phase(torch, smi)
+    mark("19")
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),
@@ -2938,6 +3524,8 @@ def main() -> int:
     kernels[1]["training_shape"] = {
         k: fwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                             "library_ms")}
+    kernels[2]["launches_by_path"] = {
+        "serving": serve_launches["decode_attention"]}
     t = train_times["flash_attention_bwd"]
     kernels.append({
         "name": "flash_attention_bwd", "route": "cuda",
@@ -2946,7 +3534,22 @@ def main() -> int:
         "launches": train_launches["flash_attention_bwd"],
         "max_abs_err": bwd_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"]})
+        "library_ms": t["library_ms"],
+        "launches_by_path": {
+            "training": train_launches["flash_attention_bwd"]}})
+    # phase 19: each model's launches (serving and one train step) and the
+    # three attention kernels' times at its shape
+    for entry in (kernels[1], kernels[2], kernels[4]):
+        name = entry["name"]
+        for key, paths in p19_launches.items():
+            entry["launches_by_path"][key.replace("-", "_")] = sum(
+                launches.get(name, 0) for launches in paths.values())
+        for key, times in p19_times.items():
+            entry[f"{key}_shape"] = {
+                k: times[name][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")}
+    print(f"[phases] seconds by phase: {json.dumps(phase_s)}; total "
+          f"{sum(phase_s.values()):.1f}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,

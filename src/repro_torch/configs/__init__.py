@@ -2,10 +2,12 @@
 port implements.
 
 ``get(arch_id)`` returns the full ModelConfig; ``smoke(arch_id)`` a reduced
-same-family config for CPU tests.  IDs match ``repro.configs``.  The other
-architectures of the JAX package need blocks the port does not have yet
-(MoE, xLSTM, M-RoPE, embeddings input); asking for one raises ``KeyError``
-(``ROADMAP.md``, queue 1).
+same-family config for CPU tests.  IDs match ``repro.configs``.  The two
+``embeds_input`` archs (musicgen-medium, qwen2-vl-2b with M-RoPE) take
+precomputed embeddings through ``Model.forward(embeds=...)``, or tokens
+through their embedding table.  The other architectures of the JAX package
+need blocks the port does not have yet (MoE, xLSTM); asking for one raises
+``KeyError`` (``ROADMAP.md``, queue 1).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ _MODULES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
     "smollm-135m": "smollm_135m",
     "yi-34b": "yi_34b",
+    "musicgen-medium": "musicgen_medium",
+    "qwen2-vl-2b": "qwen2_vl_2b",
     "recurrentgemma-2b": "recurrentgemma_2b",
 }
 

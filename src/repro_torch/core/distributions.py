@@ -434,6 +434,10 @@ class Empirical(_DistBase):
                       self._f64(self.L))
 
 
+# The paper's typical fit: tau1 in [0.5, 1.5] h, tau2 ~ 0.8 h, b ~ 24 h, A in
+# [0.4, 0.5]; n1-highcpu-16 / us-east1-b is the Fig. 1 headline config.
+PAPER_FIT_N1_HIGHCPU_16 = dict(tau1=1.0, tau2=0.8, b=24.0, A=0.475)
+
 VM_TYPE_PARAMS = {
     # name                tau1   tau2    b     A     (Obs. 4: larger => faster)
     "n1-highcpu-2": dict(tau1=1.5, tau2=0.85, b=24.0, A=0.40),

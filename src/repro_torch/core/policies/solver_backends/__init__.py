@@ -18,28 +18,41 @@ per-scenario ``(S,)`` float32 dollar overhead.  Backends:
   cuda       the hand-written Hopper kernel (CUDA tensors; CPU tensors go to
              the kernel wrapper's plain version).
 
-``"auto"`` picks ``cuda`` for a CUDA device and ``reference`` otherwise;
-an explicit name always wins.
+Selection: an explicit ``backend=`` name always wins; ``"auto"`` takes the
+``REPRO_SOLVER_BACKEND`` environment variable (``reference`` or ``cuda``)
+when it is set, and otherwise picks ``cuda`` for a CUDA device and
+``reference`` for any other, as ``repro`` applies its variable to
+``"auto"`` only.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 
 from . import cuda, grids, reference
 
 BACKENDS = ("reference", "cuda")
+ENV_VAR = "REPRO_SOLVER_BACKEND"
 
 _MODULES = {"reference": reference, "cuda": cuda}
 
 
 def resolve(backend: str = "auto", device="cpu") -> str:
-    """Resolve a ``backend=`` argument to a concrete backend name."""
+    """Resolve a ``backend=`` argument to a concrete backend name.  The
+    ``REPRO_SOLVER_BACKEND`` override applies only to ``"auto"``: code that
+    asks for a backend by name gets that backend."""
     if backend == "auto":
-        backend = "cuda" if torch.device(device).type == "cuda" \
-            else "reference"
+        env = os.environ.get(ENV_VAR, "").strip().lower()
+        if env:
+            backend = env
+        else:
+            backend = "cuda" if torch.device(device).type == "cuda" \
+                else "reference"
     if backend not in BACKENDS:
         raise ValueError(f"unknown solver backend {backend!r}; expected one "
-                         f"of {('auto',) + BACKENDS}")
+                         f"of {('auto',) + BACKENDS} (or {ENV_VAR} in "
+                         f"{BACKENDS})")
     return backend
 
 

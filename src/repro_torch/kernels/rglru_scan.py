@@ -6,7 +6,11 @@ plain PyTorch version.
 (what it computes, what bounds it and how it is laid out are written at
 the top of that file).  A CPU tensor goes to
 :func:`linear_recurrence_plain`; a CUDA tensor goes to the kernel, which is
-built at first use, or the call raises.  ``linear_recurrence.launches``
+built at first use, or the call raises.  The kernel has no backward, and
+its outputs, written through ctypes, carry no ``grad_fn``; so the CUDA
+branch raises where autograd would record (:func:`refuse_autograd`) rather
+than drop gradients without an error.  The CPU branch stays
+differentiable.  ``linear_recurrence.launches``
 counts the kernel launches made, one a call, and
 ``linear_recurrence.launches_by_kernel`` splits them by the kernel the
 launch chose: ``"chunked"`` (the TMA ring, S >= 16 with rows TMA can
@@ -50,6 +54,19 @@ def _check(a, b, h0):
         raise ValueError("a, b and h0 must be contiguous")
 
 
+def refuse_autograd(a, b, h0=None):
+    """Raise ``RuntimeError`` when autograd would record a call: grad mode
+    is on and one of ``a``, ``b``, ``h0`` requires grad.  The CUDA branch
+    of :func:`linear_recurrence` calls it before launching."""
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad for x in (a, b, h0)):
+        raise RuntimeError(
+            "linear_recurrence's CUDA kernel has no backward, so its outputs "
+            "would carry no gradient; call it under torch.no_grad() or on "
+            "inputs that do not require grad (the RG-LRU backward is "
+            "ROADMAP.md queue 1 item 2)")
+
+
 def linear_recurrence_plain(a, b, h0=None):
     """The plain PyTorch version of :func:`linear_recurrence`."""
     _check(a, b, h0)
@@ -90,6 +107,7 @@ def linear_recurrence(a, b, h0=None):
     if dev.type != "cuda":
         raise ValueError(f"linear_recurrence runs on cuda (kernel) or cpu "
                          f"(plain version), not {dev.type}")
+    refuse_autograd(a, b, h0)
     B, S, W = a.shape
     lib = _library()
     out = torch.empty_like(a)

@@ -5,9 +5,13 @@ Counterpart of ``repro.launch.serve``.  Serving on preemptible pods uses
 the paper's scheduling policy: each request batch is a job of estimated
 length, and ``PreemptionSource.reuse_decision`` decides before admitting
 it whether to keep the current pod or rotate to a fresh reservation
-(Fig. 6 economics at pod granularity).
+(Fig. 6 economics at pod granularity).  The driver feeds token prompts, so
+it refuses the ``embeds_input`` archs (musicgen-medium, qwen2-vl-2b), as
+``repro``'s does; serve those through ``launch/steps.py``'s prefill and
+decode steps with ``embeds=``.
 
-Run:
+Run (any token-input arch: recurrentgemma-2b, llama3.2-1b, smollm-135m,
+yi-34b, deepseek-coder-33b):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke --device cpu
 """
 from __future__ import annotations
@@ -52,16 +56,19 @@ def serve_batch(cfg, model, prompts, n_decode: int = 16, device="cuda"):
 
 
 def serve(cfg, model, *, batches: int, batch_size: int, prompt_len: int,
-          n_decode: int, device="cuda", seed: int = 0):
+          n_decode: int, device="cuda", seed: int = 0,
+          start_hours: float = 0.0):
     """Serve ``batches`` batches of random prompts (numpy ``seed``), each
-    admitted by the paper's reuse policy on one simulated pod.  Returns
-    one record per batch: its tokens, wall seconds, whether the pod was
-    rotated before it, and the pod's age after it."""
+    admitted by the paper's reuse policy on one simulated pod, which has
+    run ``start_hours`` simulated hours when the first batch arrives (near
+    the 24 h deadline the policy rotates it).  Returns one record per
+    batch: its tokens, wall seconds, whether the pod was rotated before
+    it, and the pod's age after it."""
     dev = resolve_device(device)
     src = PreemptionSource(distributions.constrained_for(), n_pods=1, seed=3,
                            device=dev)
     rng = np.random.default_rng(seed)
-    sim_now, records = 0.0, []
+    sim_now, records = float(start_hours), []
     for _ in range(batches):
         rotated = not src.reuse_decision(0, EST_JOB_HOURS, sim_now)
         if rotated:
@@ -92,6 +99,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
+    if cfg.embeds_input:
+        raise SystemExit("serve driver feeds tokens; pick a token-input arch")
     dev = resolve_device(args.device)
     model = T.init(cfg, torch.Generator(device=dev).manual_seed(0),
                    device=dev)

@@ -17,25 +17,40 @@ from ..models import transformer as T
 from ..optim import adamw_update, cosine_schedule
 
 
+def value_and_grad(model, batch):
+    """``lm_loss`` of ``batch``, its aux terms, and the gradient of every
+    parameter in ``model.parameters()`` order.  A parameter the loss does
+    not read (musicgen's untied embedding table under an embeds batch)
+    gets zeros, as ``jax.value_and_grad`` gives it."""
+    params = list(model.parameters())
+    loss, aux = T.lm_loss(model, batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+
+
 def make_train_step(cfg, tc):
     """The train step of ``tc`` (a ``TrainConfig``): ``lm_loss`` and its
     gradients, over ``tc.grad_accum`` microbatches (consecutive slices of
-    the batch, gradients summed in float32 and divided by their count,
-    the losses averaged), then the cosine learning rate and AdamW."""
+    the batch axis, which is axis 1 of (3, B, S) M-RoPE positions;
+    gradients summed in float32 and divided by their count, the losses
+    averaged), then the cosine learning rate and AdamW."""
     accum = max(int(tc.grad_accum), 1)
 
-    def value_and_grad(model, batch):
-        params = list(model.parameters())
-        loss, aux = T.lm_loss(model, batch)
-        grads = torch.autograd.grad(loss, params)
-        return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
+    def microbatch(batch, i, mb):
+        def cut(k, v):
+            if k == "positions" and v.ndim == 3:
+                return v[:, i * mb:(i + 1) * mb]
+            return v[i * mb:(i + 1) * mb]
+        return {k: cut(k, v) for k, v in batch.items()}
 
     def train_step(model, opt_state, batch):
         names = [n for n, _ in model.named_parameters()]
         if accum == 1:
             loss, aux, grads = value_and_grad(model, batch)
         else:
-            B = batch["tokens"].shape[0]
+            B = batch["labels"].shape[0]
             if B % accum:
                 raise ValueError(f"batch {B} does not split into "
                                  f"{accum} microbatches")
@@ -44,8 +59,8 @@ def make_train_step(cfg, tc):
                    for p in model.parameters()]
             losses, auxes = [], []
             for i in range(accum):
-                part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-                loss_i, aux_i, g = value_and_grad(model, part)
+                loss_i, aux_i, g = value_and_grad(model,
+                                                  microbatch(batch, i, mb))
                 acc = [a + gi.float() for a, gi in zip(acc, g)]
                 losses.append(loss_i)
                 auxes.append(aux_i)
@@ -67,14 +82,18 @@ def make_train_step(cfg, tc):
 
 def make_prefill_step(cfg):
     def prefill(model, cache, batch):
-        return model.prefill_step(batch["tokens"], cache)
+        return model.prefill_step(batch.get("tokens"), cache,
+                                  embeds=batch.get("embeds"),
+                                  positions=batch.get("positions"))
 
     return prefill
 
 
 def make_decode_step(cfg):
     def decode(model, cache, batch):
-        logits, cache = model.decode_step(batch["tokens"], cache)
+        logits, cache = model.decode_step(batch.get("tokens"), cache,
+                                          embeds=batch.get("embeds"),
+                                          positions=batch.get("positions"))
         # greedy next token inside the step, as repro keeps it in-graph
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return logits, next_tok, cache

@@ -1,5 +1,6 @@
-"""Shared model layers: RMS norm, rotary embeddings, tied embed / unembed,
-the GQA attention block with its KV cache, and the MLP.
+"""Shared model layers: RMS norm, rotary embeddings (RoPE, and Qwen2-VL's
+M-RoPE over three position streams), tied embed / unembed, the GQA
+attention block with its KV cache, and the MLP.
 
 Counterpart of ``repro.models.layers``, as functions over dictionaries of
 tensors (``p``) with the JAX package's parameter names and layouts, so the
@@ -12,6 +13,8 @@ The JAX package is functional and returns new caches; the port writes its
 caches in place and keeps the write position as a Python int.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 import torch.nn.functional as F
@@ -52,6 +55,46 @@ def apply_rope(x, positions, theta):
     return out.to(x.dtype)
 
 
+def apply_mrope(x, positions, theta, sections):
+    """Qwen2-VL M-RoPE.  x: (B, S, H, D); positions: (3, B, S) int, the
+    t / h / w streams; ``sections`` split the D/2 rotary frequencies over
+    the three streams in order.  Each frequency's angle is its stream's
+    position times the frequency, selected by an index gather: ``repro``
+    selects it with a one-hot ``einsum``, whose other two terms are exact
+    zeros, so both give the same float32 angles."""
+    d = x.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    freqs = rope_freqs(d, theta, x.device)                  # (D/2,)
+    # the stream of each frequency, from device-side comparisons with the
+    # sections' bounds (Python ints): a host list copied to the card would
+    # block the host on the stream at every call
+    j = torch.arange(d // 2, device=x.device)
+    stream = torch.zeros_like(j)
+    for bound in itertools.accumulate(sections[:-1]):
+        stream += j >= bound                                 # (D/2,)
+    pos = positions[stream].permute(1, 2, 0)                 # (B, S, D/2)
+    ang = pos.float() * freqs
+    cos, sin = torch.cos(ang)[:, :, None], torch.sin(ang)[:, :, None]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _rope_qk(cfg, q, k, positions):
+    """Rotate q and k by ``cfg.pos_type``, as ``repro``'s ``_rope_qk``:
+    ``rope`` over (B, S) positions, ``mrope`` over (3, B, S) streams; any
+    other type (``none``) leaves them."""
+    if cfg.pos_type == "rope":
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    if cfg.pos_type == "mrope":
+        return (apply_mrope(q, positions, cfg.rope_theta,
+                            cfg.mrope_sections),
+                apply_mrope(k, positions, cfg.rope_theta,
+                            cfg.mrope_sections))
+    return q, k
+
+
 # -- embedding / unembedding ---------------------------------------------------
 
 def embed(table, tokens, cfg):
@@ -88,12 +131,7 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="train",
     q = (x @ p["wq"].to(dt)).view(B, S, H, hd)
     k = (x @ p["wk"].to(dt)).view(B, S, KV, hd)
     v = (x @ p["wv"].to(dt)).view(B, S, KV, hd)
-    if cfg.pos_type == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_type != "none":
-        raise NotImplementedError(f"pos_type {cfg.pos_type!r} is not ported "
-                                  f"yet (ROADMAP.md, queue 1)")
+    q, k = _rope_qk(cfg, q, k, positions)
 
     if mode == "decode":
         assert cache is not None and S == 1

@@ -9,6 +9,10 @@ layers, whose kinds are the pattern's first ones.
 
 Block kinds ``attn``, ``local_attn`` and ``rglru`` are ported; ``moe``,
 ``mlstm`` and ``slstm`` raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+A forward takes tokens, looked up in the embedding table, or precomputed
+embeddings (``embeds=``, the stubbed EnCodec frontend of musicgen-medium
+and vision tower of qwen2-vl-2b), and optional positions: (B, S), or
+(3, B, S) t / h / w streams under M-RoPE.
 
 Serving and training hold their weights differently.  A serving model
 stores matrices in the compute dtype, frozen (``models/weights.py``).  A
@@ -17,9 +21,10 @@ does, a float32 ``nn.Parameter`` that requires grad, cast to the compute
 dtype at each use, so AdamW updates float32 master weights; its train
 forward recomputes each layer in the backward (``torch.utils.checkpoint``)
 when ``cfg.remat`` is set, as ``repro`` wraps each group in
-``jax.checkpoint``.  Only the attention block (RoPE, the flash pair) and
-the MLP have backward passes on the card; training an RG-LRU layer there
-needs a backward for the recurrence kernel (ROADMAP.md, queue 1).
+``jax.checkpoint``.  Only the attention block (RoPE or M-RoPE, the flash
+pair) and the MLP have backward passes on the card; training an RG-LRU
+layer there needs a backward for the recurrence kernel, whose wrapper
+raises where autograd would record (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -122,17 +127,29 @@ class Model(nn.Module):
                 caches.append(L.init_kv_cache(cfg, batch, size, device=dev))
         return {"layers": caches, "t": 0}
 
-    def forward(self, tokens, *, cache=None, mode: str = "train",
-                last_only: bool = False):
-        """tokens: (B, S) int.  Returns (logits, cache); ``last_only``
-        unembeds the last position only (B, 1, vocab).  Positions count
-        on from the cache's ``t``."""
+    def forward(self, tokens=None, *, embeds=None, positions=None,
+                cache=None, mode: str = "train", last_only: bool = False):
+        """Exactly one of ``tokens`` (B, S) int, looked up in the embedding
+        table, and ``embeds`` (B, S, d_model), cast to the compute dtype
+        as ``repro`` casts them.  ``positions``: (B, S) int, or (3, B, S)
+        under M-RoPE; by default they count on from the cache's ``t``, the
+        same in all three streams.  Returns (logits, cache);
+        ``last_only`` unembeds the last position only (B, 1, vocab)."""
         cfg = self.cfg
-        B, S = tokens.shape
-        x = L.embed(self.embed, tokens, cfg)
-        t0 = cache["t"] if cache is not None else 0
-        positions = (t0 + torch.arange(S, dtype=torch.int32,
-                                       device=tokens.device)).expand(B, S)
+        if (tokens is None) == (embeds is None):
+            raise ValueError("give exactly one of tokens and embeds")
+        if tokens is not None:
+            B, S = tokens.shape
+            x = L.embed(self.embed, tokens, cfg)
+        else:
+            B, S = embeds.shape[:2]
+            x = embeds.to(L.cdt(cfg))
+        if positions is None:
+            t0 = cache["t"] if cache is not None else 0
+            positions = (t0 + torch.arange(S, dtype=torch.int32,
+                                           device=x.device)).expand(B, S)
+            if cfg.pos_type == "mrope":
+                positions = positions.expand(3, B, S)
         remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
             apply, window = BLOCKS[kind]
@@ -155,16 +172,21 @@ class Model(nn.Module):
             cache["t"] += S
         return logits, cache
 
-    def prefill_step(self, tokens, cache):
-        """Full-context forward that fills the cache.  Returns the last
-        position's logits (B, 1, vocab), as ``repro``'s ``prefill_step``
-        does, but unembeds only that position."""
-        return self.forward(tokens, cache=cache, mode="prefill",
-                            last_only=True)
+    def prefill_step(self, tokens=None, cache=None, *, embeds=None,
+                     positions=None):
+        """Full-context forward over tokens or ``embeds`` that fills the
+        cache.  Returns the last position's logits (B, 1, vocab), as
+        ``repro``'s ``prefill_step`` does, but unembeds only that
+        position."""
+        return self.forward(tokens, embeds=embeds, positions=positions,
+                            cache=cache, mode="prefill", last_only=True)
 
-    def decode_step(self, tokens, cache):
-        """One new token (B, 1) against the cache."""
-        return self.forward(tokens, cache=cache, mode="decode")
+    def decode_step(self, tokens=None, cache=None, *, embeds=None,
+                    positions=None):
+        """One new token (B, 1), or one embedding (B, 1, d_model), against
+        the cache."""
+        return self.forward(tokens, embeds=embeds, positions=positions,
+                            cache=cache, mode="decode")
 
 
 class _LogZGold(torch.autograd.Function):
@@ -196,9 +218,12 @@ class _LogZGold(torch.autograd.Function):
 def lm_loss(model, batch):
     """Next-token cross-entropy, the mean over valid positions, plus the
     1e-4 z-loss (``repro.models.transformer.lm_loss``).  ``batch`` has
-    tokens (B, S), labels (B, S) and an optional mask (B, S).  Returns
-    ``(loss + zloss, {"nll": loss, "zloss": zloss})``, float32 scalars."""
-    logits, _ = model(batch["tokens"], mode="train")
+    tokens (B, S) or embeds (B, S, d_model), labels (B, S), and optional
+    positions ((B, S), or (3, B, S) under M-RoPE) and mask (B, S).
+    Returns ``(loss + zloss, {"nll": loss, "zloss": zloss})``, float32
+    scalars."""
+    logits, _ = model(batch.get("tokens"), embeds=batch.get("embeds"),
+                      positions=batch.get("positions"), mode="train")
     logz, gold = _LogZGold.apply(logits, batch["labels"])
     nll = logz - gold
     mask = batch.get("mask")

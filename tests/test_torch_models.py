@@ -35,7 +35,7 @@ from repro_torch.models import weights as TW
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
 ARCHS = ["recurrentgemma-2b", "llama3.2-1b", "smollm-135m", "yi-34b",
-         "deepseek-coder-33b"]
+         "deepseek-coder-33b", "musicgen-medium", "qwen2-vl-2b"]
 
 
 def _cfg(arch, dtype="float32"):
