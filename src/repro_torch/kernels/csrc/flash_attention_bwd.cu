@@ -21,7 +21,11 @@
 // shape (B = 8, S = 2048, H = 9, KV = 3, D = 64, causal) a call has
 // 1.51e8 visible (query, key) pairs: the five products need 10 D = 640
 // operations a pair, 9.7e10 in all, 0.098 ms at the 989 TFLOP/s bf16
-// tensor-core peak of an H100 SXM (its bytes, 101 MB, take 0.030 ms).
+// tensor-core peak of an H100 SXM (its bytes, 101 MB, take 0.030 ms).  At
+// recurrentgemma-2b's training microbatch (B = 2, S = 2048, H = 10,
+// KV = 1, D = 256, window 2048, which at S = 2048 masks nothing the causal
+// mask keeps) a call has 4.20e7 visible pairs: 10 D = 2560 operations a
+// pair, 1.07e11 in all, 0.109 ms (its bytes, 92 MB, take 0.028 ms).
 //
 // Deterministic by construction: no atomics.  Two kernels, each output
 // element summed by one thread in a fixed order, so reruns are
@@ -75,6 +79,19 @@
 // dV and dK at 2 x 2 x 2 D), twice the bound's 10 D.  Shared memory: six
 // 64 x D tiles a block (48 KB at D = 64, 96 KB at D = 128); three dq blocks
 // an SM at D = 64, two otherwise.
+// D = 256 (recurrentgemma's local attention): one warpgroup cannot hold
+// the accumulators of a 64-row tile (dK and dV alone are 2 x 64 x 256
+// floats, 256 registers a thread).  So each kernel's OUTPUT columns are cut
+// into two 128-wide halves, each half a block of its own (side by side in
+// blockIdx.x, so that the two stream the same tiles through L2): a block
+// still contracts all 256 of D in S and dP from shared memory, but
+// accumulates only its half of dQ (64 registers) or of dK and dV (128),
+// the D = 128 instance's registers, reading its half of K, Q or dO as the
+// B operand (two of the tile's four 64-column panels).  The price is S and
+// dP issued twice: 28 D a pair (the dq kernel 2 x 4 D + 4 D, the dk/dv
+// kernel 2 x 4 D + 8 D) against the bound's 10 D.  Shared memory: six
+// 64 x 256 tiles (each four 128-byte-swizzled panels), 192 KB plus the
+// stats and slack, 198,680 bytes: one block an SM (min_blocks 1).
 //
 // float32 (dq_kernel, dkdv_kernel) stays on the CUDA cores in full
 // float32: its contract (1e-5 x max|plain|, on which the card-vs-CPU
@@ -85,11 +102,17 @@
 // rows padded by 4, so the 16-byte loads of 8 threads hit 32 banks; delta
 // in the scratch as (B, Sq, H).  14 D float operations a pair (S and dP
 // twice): 2.0 ms or more at the 67 TFLOP/s CUDA-core peak at the shape
-// above.
+// above.  At D = 256 four padded 64 x 256 float tiles would take 266 KB,
+// so the tiles hold 128 columns (170,496 bytes with the score tiles, one
+// block an SM) and the output columns are halved as in bf16: a block sums
+// S and dP over the two column halves in turn (the order of one pass, so
+// both halves see the same P and dS), then reloads its own half of the
+// gradient product's operand if the other is in shared memory; the
+// resident tiles are streamed again for each half.  22 D a pair.
 //
-// Host side: flash_attention_bwd_launch checks the head dimension (64 or
-// 128), launches both kernels of the type on the caller's stream (the dq
-// kernel first: it writes delta) and returns the first cudaError_t.
+// Host side: flash_attention_bwd_launch checks the head dimension (64, 128
+// or 256), launches both kernels of the type on the caller's stream (the
+// dq kernel first: it writes delta) and returns the first cudaError_t.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,8 +157,25 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk,
          (window <= 0 || kpos > qpos - window);
 }
 
-// s[i][j] = A[ra_i] . B[rb_j] and t[i][j] = C[ra_i] . E[rb_j] over D, for
-// rows ra_i = ty + 16 i of A and C and rb_j = tx + 16 j of B and E
+// Columns of D a float32 tile holds, and the output columns a block owns:
+// all of D up to 128; at D = 256, half (four padded 64 x 256 float tiles
+// would need 266 KB), each half a block of its own.
+template <int D>
+__host__ __device__ constexpr int f32_cols() {
+  return D > 128 ? 128 : D;
+}
+
+template <int N>
+__device__ __forceinline__ void zero_tile(float (&s)[4][N]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[i][j] = 0.f;
+}
+
+// s[i][j] += A[ra_i] . B[rb_j] and t[i][j] += C[ra_i] . E[rb_j] over the D
+// columns of the tiles, for rows ra_i = ty + 16 i of A and C and
+// rb_j = tx + 16 j of B and E
 template <int D>
 __device__ __forceinline__ void two_products(const float* A, const float* Bm,
                                              const float* C, const float* E,
@@ -143,10 +183,6 @@ __device__ __forceinline__ void two_products(const float* A, const float* Bm,
                                              float (&t)[4][4]) {
   constexpr int LD = D + kPad;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
 #pragma unroll 2
   for (int d = 0; d < D; d += 4) {
     float4 a[4], c[4], b[4], e[4];
@@ -202,12 +238,16 @@ __device__ __forceinline__ void tile_product(const float* W, const float* X,
 
 template <int D>
 constexpr int smem_bytes() {
-  // four 64 x D tiles, two 64 x 64 score tiles, lse and delta
-  return (4 * kB * (D + kPad) + 2 * kB * kLP + 2 * kB) * 4;
+  // four 64 x f32_cols<D>() tiles, two 64 x 64 score tiles, lse and delta
+  return (4 * kB * (f32_cols<D>() + kPad) + 2 * kB * kLP + 2 * kB) * 4;
 }
 
 // ---- dq (and delta) ----------------------------------------------------------
 
+// One block per (b * H + h, column block, 64-query tile).  At D = 256 the
+// tiles hold 128 columns: S and dP sum over both halves of D in turn (the
+// order of a single pass), then the block's own half of K is reloaded if
+// it is not the one left in shared memory.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -215,8 +255,10 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ lse, const float* __restrict__ dout,
           float* __restrict__ delta, float* __restrict__ dq, int Sq, int Sk,
           int H, int KV, float scale, int causal, int window) {
-  constexpr int LD = D + kPad;
-  constexpr int CG = D / 64;
+  constexpr int DC = f32_cols<D>();
+  constexpr int NC = D / DC;
+  constexpr int LD = DC + kPad;
+  constexpr int CG = DC / 64;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* dOs = Qs + kB * LD;
@@ -227,7 +269,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* delta_s = lse_s + kB;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int half = blockIdx.x % NC;
+  const int b = blockIdx.x / NC / H, h = blockIdx.x / NC % H;
   const int kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kB;   // heaviest tiles first
   const int off = Sk - Sq;
@@ -236,17 +279,18 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + (long)b * Sk * kv_stride + (long)kvh * D;
   const float* vb = v + (long)b * Sk * kv_stride + (long)kvh * D;
 
-  load_tile<D>(Qs, q + q_base, q_stride, q0, Sq);
-  load_tile<D>(dOs, dout + q_base, q_stride, q0, Sq);
-  __syncthreads();
+  if (NC == 1) {
+    load_tile<DC>(Qs, q + q_base, q_stride, q0, Sq);
+    load_tile<DC>(dOs, dout + q_base, q_stride, q0, Sq);
+  }
 
   // delta = rowsum(dout * out): warp w takes rows w, w + 8, ...
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < kB; r += kThreads / 32) {
     float sum = 0.f;
     if (q0 + r < Sq) {
-      const float* orow = o + q_base + (long)(q0 + r) * q_stride;
-      for (int d = lane; d < D; d += 32) sum += dOs[r * LD + d] * orow[d];
+      const long row = q_base + (long)(q0 + r) * q_stride;
+      for (int d = lane; d < D; d += 32) sum += dout[row + d] * o[row + d];
     }
 #pragma unroll
     for (int s = 16; s > 0; s >>= 1)
@@ -254,7 +298,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lane == 0) {
       delta_s[r] = sum;
       lse_s[r] = q0 + r < Sq ? lse[((long)b * Sq + q0 + r) * H + h] : 0.f;
-      if (q0 + r < Sq) delta[((long)b * Sq + q0 + r) * H + h] = sum;
+      if (q0 + r < Sq && half == 0)
+        delta[((long)b * Sq + q0 + r) * H + h] = sum;
     }
   }
 
@@ -265,19 +310,24 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (window > 0) k_begin = max(0, q_lo - window + 1) / kB * kB;
 
   float acc[4][4 * CG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * CG; ++c) acc[i][c] = 0.f;
+  zero_tile(acc);
 
   for (int k0 = k_begin; k0 < k_end; k0 += kB) {
-    __syncthreads();                   // the previous tile's readers are done
-    load_tile<D>(Ks, kb, kv_stride, k0, Sk);
-    load_tile<D>(Vs, vb, kv_stride, k0, Sk);
-    __syncthreads();
-
     float s[4][4], dp[4][4];
-    two_products<D>(Qs, Ks, dOs, Vs, s, dp);
+    zero_tile(s);
+    zero_tile(dp);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      __syncthreads();                 // the previous tile's readers are done
+      if (NC > 1) {
+        load_tile<DC>(Qs, q + q_base + c * DC, q_stride, q0, Sq);
+        load_tile<DC>(dOs, dout + q_base + c * DC, q_stride, q0, Sq);
+      }
+      load_tile<DC>(Ks, kb + c * DC, kv_stride, k0, Sk);
+      load_tile<DC>(Vs, vb + c * DC, kv_stride, k0, Sk);
+      __syncthreads();
+      two_products<DC>(Qs, Ks, dOs, Vs, s, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = ty + 16 * i;
@@ -291,11 +341,15 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         dSs[r * kLP + c] = p * (dp[i][j] - delta_s[r]) * scale;
       }
     }
+    if (NC > 1 && half != NC - 1) {   // this block's half of K
+      __syncthreads();
+      load_tile<DC>(Ks, kb + half * DC, kv_stride, k0, Sk);
+    }
     __syncthreads();
-    tile_product<D>(dSs, Ks, acc);
+    tile_product<DC>(dSs, Ks, acc);
   }
 
-  float* dqb = dq + q_base;
+  float* dqb = dq + q_base + half * DC;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + ty + 16 * i;
@@ -310,6 +364,8 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---- dk, dv --------------------------------------------------------------
 
+// One block per (b * KV + kv head, column block, 64-key tile); at D = 256
+// the column halves as in dq_kernel, with K and V streamed beside Q and dO.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -317,8 +373,10 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const float* __restrict__ dout, const float* __restrict__ delta,
             float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk,
             int H, int KV, float scale, int causal, int window) {
-  constexpr int LD = D + kPad;
-  constexpr int CG = D / 64;
+  constexpr int DC = f32_cols<D>();
+  constexpr int NC = D / DC;
+  constexpr int LD = DC + kPad;
+  constexpr int CG = DC / 64;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + kB * LD;
@@ -330,15 +388,18 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* delta_s = lse_s + kB;
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int half = blockIdx.x % NC;
+  const int b = blockIdx.x / NC / KV, kvh = blockIdx.x / NC % KV;
   const int G = H / KV;
   const int k0 = blockIdx.y * kB;      // early key tiles see the most queries
   const int off = Sk - Sq;
   const long q_stride = (long)H * D, kv_stride = (long)KV * D;
   const long kv_base = (long)b * Sk * kv_stride + (long)kvh * D;
 
-  load_tile<D>(Ks, k + kv_base, kv_stride, k0, Sk);
-  load_tile<D>(Vs, v + kv_base, kv_stride, k0, Sk);
+  if (NC == 1) {
+    load_tile<DC>(Ks, k + kv_base, kv_stride, k0, Sk);
+    load_tile<DC>(Vs, v + kv_base, kv_stride, k0, Sk);
+  }
 
   // the query range that may see some key of this tile
   int qi_begin = 0, qi_end = Sq;
@@ -346,28 +407,34 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (window > 0) qi_end = max(0, min(Sq, k0 + kB - 1 + window - off));
 
   float adk[4][4 * CG], adv[4][4 * CG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < 4 * CG; ++c) adk[i][c] = adv[i][c] = 0.f;
+  zero_tile(adk);
+  zero_tile(adv);
 
   for (int g = 0; g < G; ++g) {
     const int h = kvh * G + g;
     const long q_base = (long)b * Sq * q_stride + (long)h * D;
     for (int q0 = qi_begin; q0 < qi_end; q0 += kB) {
-      __syncthreads();                 // the previous tile's readers are done
-      load_tile<D>(Qs, q + q_base, q_stride, q0, Sq);
-      load_tile<D>(dOs, dout + q_base, q_stride, q0, Sq);
-      if (threadIdx.x < kB) {
-        const int r = q0 + threadIdx.x;
-        const long at = ((long)b * Sq + r) * H + h;
-        lse_s[threadIdx.x] = r < Sq ? lse[at] : 0.f;
-        delta_s[threadIdx.x] = r < Sq ? delta[at] : 0.f;
-      }
-      __syncthreads();
-
       float s[4][4], dp[4][4];         // transposed: rows are keys
-      two_products<D>(Ks, Qs, Vs, dOs, s, dp);
+      zero_tile(s);
+      zero_tile(dp);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        __syncthreads();               // the previous tile's readers are done
+        if (NC > 1) {
+          load_tile<DC>(Ks, k + kv_base + c * DC, kv_stride, k0, Sk);
+          load_tile<DC>(Vs, v + kv_base + c * DC, kv_stride, k0, Sk);
+        }
+        load_tile<DC>(Qs, q + q_base + c * DC, q_stride, q0, Sq);
+        load_tile<DC>(dOs, dout + q_base + c * DC, q_stride, q0, Sq);
+        if (c == 0 && threadIdx.x < kB) {
+          const int r = q0 + threadIdx.x;
+          const long at = ((long)b * Sq + r) * H + h;
+          lse_s[threadIdx.x] = r < Sq ? lse[at] : 0.f;
+          delta_s[threadIdx.x] = r < Sq ? delta[at] : 0.f;
+        }
+        __syncthreads();
+        two_products<DC>(Ks, Qs, Vs, dOs, s, dp);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int kr = ty + 16 * i;
@@ -381,14 +448,19 @@ dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           dSs[kr * kLP + c] = p * (dp[i][j] - delta_s[c]) * scale;
         }
       }
+      if (NC > 1 && half != NC - 1) {  // this block's half of Q and dO
+        __syncthreads();
+        load_tile<DC>(Qs, q + q_base + half * DC, q_stride, q0, Sq);
+        load_tile<DC>(dOs, dout + q_base + half * DC, q_stride, q0, Sq);
+      }
       __syncthreads();
-      tile_product<D>(Ps, dOs, adv);
-      tile_product<D>(dSs, Qs, adk);
+      tile_product<DC>(Ps, dOs, adv);
+      tile_product<DC>(dSs, Qs, adk);
     }
   }
 
-  float* dkb = dk + kv_base;
-  float* dvb = dv + kv_base;
+  float* dkb = dk + kv_base + half * DC;
+  float* dvb = dv + kv_base + half * DC;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = k0 + ty + 16 * i;
@@ -423,10 +495,21 @@ constexpr bool kLoP = (FLASH_BWD_LO & 1) != 0;
 constexpr bool kLoDS = (FLASH_BWD_LO & 2) != 0;
 
 // Blocks an SM: a block of 4 warps may use 255 registers a thread at two
-// blocks an SM and 168 at three; the dq kernel at D = 64 fits three.
+// blocks an SM and 168 at three; the dq kernel at D = 64 fits three.  At
+// D = 256 six 64 x 256 tiles take 194 KB: one block an SM.
 template <int D>
 constexpr int min_blocks(bool dq) {
-  return D == 64 && dq ? 3 : 2;
+  return D == 256 ? 1 : D == 64 && dq ? 3 : 2;
+}
+
+// Output columns a block owns: all of D up to 128; at D = 256, a 128-column
+// half, each half a block of its own.  A block's S and dP still contract
+// all of D; only its gradient accumulators (64 x DO floats each) and the
+// B operand of its gradient products are cut, so the registers are those
+// of the D = 128 instance.
+template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D > 128 ? 128 : D;
 }
 
 template <int D>
@@ -565,6 +648,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 int causal, int window) {
   constexpr int kTile = BwdLayout<D>::kTile;
   constexpr int NP = D / 64;           // panels of a tile
+  constexpr int DO = out_cols<D>();
+  constexpr int NH = D / DO;           // column blocks
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
@@ -573,7 +658,10 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* full = reinterpret_cast<uint64_t*>(KVs + 2 * kStages * kTile);
   uint64_t* qbar = full + kStages;
 
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  // the column blocks of one (b, h) side by side, so they share the tiles
+  // they stream in L2
+  const int half = blockIdx.x % NH;
+  const int b = blockIdx.x / NH / H, h = blockIdx.x / NH % H;
   const int kvh = h / (H / KV);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgB;   // heaviest first
   const int off = Sk - Sq;
@@ -645,7 +733,7 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     delta[r] = sum;
-    if (c == 0) {                      // rows past Sq too: the pad is zero
+    if (c == 0 && half == 0) {         // rows past Sq too: the pad is zero
       lse2_out[stat + row0 + 8 * r] = lse2[r];
       delta_out[stat + row0 + 8 * r] = sum;
     }
@@ -654,8 +742,8 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const Band band(causal, window);
   const bool q_in[2] = {q0 + row0 < Sq, q0 + row0 + 8 < Sq};
 
-  float acc[D / 2];
-  zero<D / 2>(acc);
+  float acc[DO / 2];
+  zero<DO / 2>(acc);
   hop::mbar_wait(qbar, 0);
   __syncwarp();
   for (int t = 0; t < n_tiles; ++t) {
@@ -703,18 +791,18 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     else
       tile(Flag<true>());
 
-    // dQ += dS K
+    // dQ += dS K, over this block's columns of K
     uint32_t hi[4][4], lo[4][4];
     a_frags(dp, hi, lo);
-    fence_regs<D / 2>(acc);
+    fence_regs<DO / 2>(acc);
     hop::wgmma_fence();
-    product_rs<D, kLoDS>(acc, hi, lo, Kt);
+    product_rs<DO, kLoDS>(acc, hi, lo, Kt + half * (DO / 64) * kPanel);
     hop::wgmma_commit();
     hop::wgmma_wait_all();
-    fence_regs<D / 2>(acc);
+    fence_regs<DO / 2>(acc);
   }
-  store_frag<D>(dq + (long)b * Sq * q_stride + (long)h * D, q_stride, acc,
-                q0, Sq);
+  store_frag<DO>(dq + (long)b * Sq * q_stride + (long)h * D + half * DO,
+                 q_stride, acc, q0, Sq);
 }
 
 // ---- dk, dv ---------------------------------------------------------------
@@ -732,6 +820,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                   int KV, int Sqp, float scale, int causal, int window) {
   constexpr int kTile = BwdLayout<D>::kTile;
   constexpr int NP = D / 64;
+  constexpr int DO = out_cols<D>();
+  constexpr int NH = D / DO;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Ks = smem;
@@ -742,7 +832,8 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* full = reinterpret_cast<uint64_t*>(stats + 2 * kStages * kWgB);
   uint64_t* kvbar = full + kStages;
 
-  const int b = blockIdx.x / KV, kvh = blockIdx.x % KV;
+  const int half = blockIdx.x % NH;
+  const int b = blockIdx.x / NH / KV, kvh = blockIdx.x / NH % KV;
   const int G = H / KV;
   const int k0 = blockIdx.y * kWgB;    // early key tiles see the most queries
   const int off = Sk - Sq;
@@ -793,9 +884,9 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float scale_log2 = scale * kLog2e;
   const Band band(causal, window);
   const bool k_in[2] = {k0 + row0 < Sk, k0 + row0 + 8 < Sk};
-  float adk[D / 2], adv[D / 2];
-  zero<D / 2>(adk);
-  zero<D / 2>(adv);
+  float adk[DO / 2], adv[DO / 2];
+  zero<DO / 2>(adk);
+  zero<DO / 2>(adv);
   if (n_tiles > 0) hop::mbar_wait(kvbar, 0);
   __syncwarp();
   for (int t = 0; t < n_tiles; ++t) {
@@ -846,24 +937,24 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     else
       tile(Flag<true>());
 
-    // dV += P^T dO and dK += dS^T Q
+    // dV += P^T dO and dK += dS^T Q, over this block's columns
     uint32_t phi[4][4], plo[4][4], shi[4][4], slo[4][4];
     a_frags(st, phi, plo);
     a_frags(dpt, shi, slo);
-    fence_regs<D / 2>(adv);
-    fence_regs<D / 2>(adk);
+    fence_regs<DO / 2>(adv);
+    fence_regs<DO / 2>(adk);
     hop::wgmma_fence();
-    product_rs<D, kLoP>(adv, phi, plo, dOt);
-    product_rs<D, kLoDS>(adk, shi, slo, Qt);
+    product_rs<DO, kLoP>(adv, phi, plo, dOt + half * (DO / 64) * kPanel);
+    product_rs<DO, kLoDS>(adk, shi, slo, Qt + half * (DO / 64) * kPanel);
     hop::wgmma_commit();
     hop::wgmma_wait_all();
-    fence_regs<D / 2>(adv);
-    fence_regs<D / 2>(adk);
+    fence_regs<DO / 2>(adv);
+    fence_regs<DO / 2>(adk);
   }
   const long kv_stride = (long)KV * D;
-  const long kv_base = (long)b * Sk * kv_stride + (long)kvh * D;
-  store_frag<D>(dk + kv_base, kv_stride, adk, k0, Sk);
-  store_frag<D>(dv + kv_base, kv_stride, adv, k0, Sk);
+  const long kv_base = (long)b * Sk * kv_stride + (long)kvh * D + half * DO;
+  store_frag<DO>(dk + kv_base, kv_stride, adk, k0, Sk);
+  store_frag<DO>(dv + kv_base, kv_stride, adv, k0, Sk);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -889,12 +980,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   const float* dot = static_cast<const float*>(dout);
-  kq<<<dim3(B * H, (Sq + kB - 1) / kB), kThreads, bytes, stream>>>(
+  constexpr int NC = D / f32_cols<D>();
+  kq<<<dim3(B * H * NC, (Sq + kB - 1) / kB), kThreads, bytes, stream>>>(
       qt, kt, vt, static_cast<const float*>(o), lse, dot, delta,
       static_cast<float*>(dq), Sq, Sk, H, KV, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kkv<<<dim3(B * KV, (Sk + kB - 1) / kB), kThreads, bytes, stream>>>(
+  kkv<<<dim3(B * KV * NC, (Sk + kB - 1) / kB), kThreads, bytes, stream>>>(
       qt, kt, vt, lse, dot, delta, static_cast<float*>(dk),
       static_cast<float*>(dv), Sq, Sk, H, KV, scale, causal, window);
   return cudaGetLastError();
@@ -928,14 +1020,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const int Sqp = (Sq + kWgB - 1) / kWgB * kWgB;
   float* lse2 = scratch;
   float* delta = scratch + (long)B * H * Sqp;
-  kq<<<dim3(B * H, Sqp / kWgB), kWgThreads, bytes, stream>>>(
+  constexpr int NH = D / out_cols<D>();
+  kq<<<dim3(B * H * NH, Sqp / kWgB), kWgThreads, bytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta,
       static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, KV, Sqp, scale, causal,
       window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kkv<<<dim3(B * KV, (Sk + kWgB - 1) / kWgB), kWgThreads, bytes, stream>>>(
+  kkv<<<dim3(B * KV * NH, (Sk + kWgB - 1) / kWgB), kWgThreads, bytes,
+                stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, KV, Sqp, scale, causal,
       window);
@@ -982,6 +1076,9 @@ extern "C" int flash_attention_bwd_launch(
                               Sq, Sk, H, KV, scale, causal, window, s);
     case 128:
       return launch_typed<128>(dtype, q, k, v, o, l, dout, sc, dq, dk, dv, B,
+                               Sq, Sk, H, KV, scale, causal, window, s);
+    case 256:
+      return launch_typed<256>(dtype, q, k, v, o, l, dout, sc, dq, dk, dv, B,
                                Sq, Sk, H, KV, scale, causal, window, s);
     default:
       return cudaErrorInvalidValue;

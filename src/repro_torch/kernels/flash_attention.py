@@ -11,9 +11,11 @@ is the port of ``repro.kernels.ops._flash_bwd`` (the XLA backward under
 ``flash_attention_xla``'s custom_vjp); its source is
 ``csrc/flash_attention_bwd.cu``: two kernels (dq, then dk and dv summed
 over each GQA group inside one block), deterministic (no atomics), head
-dims 64 and 128.  In bfloat16 they run their five products on the tensor
-cores (wgmma fed by TMA), P and dS passed as bf16 hi + lo halves; in
-float32 they stay on the CUDA cores in full float32.  :class:`FlashAttention`
+dims 64, 128 and 256 (recurrentgemma's local attention; there each
+kernel's output columns are cut into two 128-wide halves, a block each).
+In bfloat16 they run their five products on the tensor cores (wgmma fed
+by TMA), P and dS passed as bf16 hi + lo halves; in float32 they stay on
+the CUDA cores in full float32.  :class:`FlashAttention`
 is the ``torch.autograd.Function`` of the training path: the forward
 kernel with LSE, then the backward kernel.
 
@@ -46,7 +48,7 @@ from . import _build
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)          # the forward kernel's instances
-BWD_HEAD_DIMS = (64, 128)           # the backward kernel's instances
+BWD_HEAD_DIMS = (64, 128, 256)      # the backward kernel's instances
 
 
 def _check(q, k, v):
@@ -223,7 +225,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     given its output ``out``, its row log-sum-exp ``lse`` (float32
     (B, Sq, H)) and the output gradient ``dout``; each in its input's
     dtype, dk and dv summed over the query heads of a group.  All inputs
-    contiguous; head dim 64 or 128 on the card."""
+    contiguous; head dim 64, 128 or 256 on the card."""
     _check_bwd(q, k, v, out, lse, dout)
     dev = q.device
     if dev.type == "cpu":

@@ -55,16 +55,21 @@ def make_train_step(cfg, tc):
                 raise ValueError(f"batch {B} does not split into "
                                  f"{accum} microbatches")
             mb = B // accum
+            # summed and divided in place (the same roundings as a + g and
+            # a / accum), each microbatch's gradients dropped once summed:
+            # no second float32 copy of the parameters' size is held
             acc = [torch.zeros_like(p, dtype=torch.float32)
                    for p in model.parameters()]
             losses, auxes = [], []
             for i in range(accum):
                 loss_i, aux_i, g = value_and_grad(model,
                                                   microbatch(batch, i, mb))
-                acc = [a + gi.float() for a, gi in zip(acc, g)]
+                for a, gi in zip(acc, g):
+                    a.add_(gi.float())
+                del g
                 losses.append(loss_i)
                 auxes.append(aux_i)
-            grads = [a / accum for a in acc]
+            grads = [a.div_(accum) for a in acc]
             loss = torch.stack(losses).mean()
             aux = {k: torch.stack([a[k] for a in auxes]).mean()
                    for k in auxes[0]}

@@ -9,7 +9,8 @@ Counterpart of ``repro.models.rglru``:
     h_t = a_t h_{t-1} + sqrt(1 - a_t^2) * (i_t * u_t)
 
 with the recurrence itself through ``kernels.ops.linear_recurrence`` (the
-hand-written kernel on the card).  The cache holds the conv history
+hand-written kernel on the card; where autograd records, the
+``LinearRecurrence`` pair of forward and backward kernels).  The cache holds the conv history
 ``conv`` (B, conv_width - 1, W) in the compute dtype and the state ``h``
 (B, W) in float32, and is updated in place.
 """

@@ -21,10 +21,13 @@ does, a float32 ``nn.Parameter`` that requires grad, cast to the compute
 dtype at each use, so AdamW updates float32 master weights; its train
 forward recomputes each layer in the backward (``torch.utils.checkpoint``)
 when ``cfg.remat`` is set, as ``repro`` wraps each group in
-``jax.checkpoint``.  Only the attention block (RoPE or M-RoPE, the flash
-pair) and the MLP have backward passes on the card; training an RG-LRU
-layer there needs a backward for the recurrence kernel, whose wrapper
-raises where autograd would record (ROADMAP.md, queue 1).
+``jax.checkpoint``.  Every ported block trains on the card: attention
+(RoPE or M-RoPE) through the flash pair (``FlashAttention``, head dims 64,
+128 and 256), the RG-LRU recurrence through its kernel pair
+(``LinearRecurrence``), the rest through PyTorch's own autograd.  Under
+remat each layer's forward runs twice (the forward, then the backward's
+recomputation, which is the one that keeps its saved tensors) and its
+backward once.
 """
 from __future__ import annotations
 

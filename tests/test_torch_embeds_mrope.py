@@ -1,7 +1,8 @@
 """Embeddings input and M-RoPE in the port (musicgen-medium, qwen2-vl-2b)
 against ``repro`` on the CPU at smoke size, and the port's three repairs:
-the recurrence kernel's autograd guard, ``REPRO_SOLVER_BACKEND`` for
-``"auto"``, and ``PAPER_FIT_N1_HIGHCPU_16``.
+the recurrence's autograd (an earlier guard that raised where autograd
+records, now the ``LinearRecurrence`` Function), ``REPRO_SOLVER_BACKEND``
+for ``"auto"``, and ``PAPER_FIT_N1_HIGHCPU_16``.
 
 Both sides get the same weights (``repro``'s ``transformer.init``, carried
 across with ``weights.from_jax_params``) and the same numpy inputs:
@@ -46,7 +47,7 @@ from repro_torch import configs as TC
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import distributions as TD
 from repro_torch.core.policies import solver_backends
-from repro_torch.kernels import rglru_scan
+from repro_torch.kernels import ops as TO
 from repro_torch.launch import serve as TSV
 from repro_torch.launch import steps as TS
 from repro_torch.launch import train as TTR
@@ -378,25 +379,22 @@ def test_train_cli_runs_on_tokens(arch, tmp_path):
 
 # -- the repairs ---------------------------------------------------------------
 
-def test_linear_recurrence_guard_raises_where_autograd_records():
+def test_linear_recurrence_records_a_grad_fn_where_autograd_records():
+    """The recurrence trains: called on inputs that require grad it records
+    its autograd Function and returns finite gradients for a, b and h0."""
     rng = np.random.default_rng(0)
     a = torch.as_tensor(rng.uniform(0.5, 1.0, (2, 5, 8)), dtype=torch.float32)
     b = torch.as_tensor(rng.standard_normal((2, 5, 8)), dtype=torch.float32)
-    h0 = torch.zeros((2, 8))
-    for grad_arg in range(3):
-        args = [a.clone(), b.clone(), h0.clone()]
-        args[grad_arg].requires_grad_()
-        with pytest.raises(RuntimeError, match="queue 1 item 2"):
-            rglru_scan.refuse_autograd(*args)
-        with torch.no_grad():
-            rglru_scan.refuse_autograd(*args)
-    rglru_scan.refuse_autograd(a, b, h0)          # frozen inputs
-    rglru_scan.refuse_autograd(a, b, None)
-    # the CPU branch stays the plain, differentiable version
-    a_ = a.clone().requires_grad_()
-    h, _ = rglru_scan.linear_recurrence(a_, b)
-    (g,) = torch.autograd.grad(h.sum(), a_)
-    assert torch.isfinite(g).all() and g.abs().sum() > 0
+    h0 = torch.as_tensor(rng.standard_normal((2, 8)), dtype=torch.float32)
+    args = [x.clone().requires_grad_() for x in (a, b, h0)]
+    h, h_last = TO.linear_recurrence(*args)
+    assert type(h.grad_fn).__name__ == "LinearRecurrenceBackward"
+    grads = torch.autograd.grad(h.sum() + h_last.sum(), args)
+    for x, g in zip(args, grads):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        assert torch.isfinite(g).all() and g.abs().sum() > 0
+    with torch.no_grad():
+        assert TO.linear_recurrence(*args)[0].grad_fn is None
 
 
 def test_solver_backend_env_steers_auto_only(monkeypatch):

@@ -12,7 +12,10 @@ cancel: a query that sees one key has dq = 0 exactly, and both sides
 round dP - delta to +-1 ulp of dP, which leaves noise of the size of
 ulp(|dP|) x |k| (~1e-6 at unit inputs) and of either sign.  The forward's
 log-sum-exp is held to ``_flash_fwd_shaped``'s at rtol 1e-5 / atol 1e-6.
-The kernel itself runs only on the card (``chip_smoke.py`` phase 16).
+The plain backward and the LSE also run at recurrentgemma-2b's head dim
+256 (KV = 1), and the bf16 rehearsal below runs at D = 256 with the
+instances' split of the output columns into 128-wide blocks.  The kernel
+itself runs only on the card (``chip_smoke.py`` phase 16).
 """
 import jax
 import jax.numpy as jnp
@@ -37,6 +40,12 @@ CASES = [
     (1, 80, 4, 1, 32, True, 24),     # GQA + sliding window
     (2, 40, 4, 2, 8, False, 0),      # no mask
 ]
+# recurrentgemma-2b's head dim (KV = 1, a window), for the backward and
+# the LSE
+CASES_D256 = [
+    (1, 40, 2, 1, 256, True, 16),
+    (2, 33, 4, 1, 256, True, 0),
+]
 
 
 def _inputs(B, S, H, KV, D, seed=0):
@@ -60,7 +69,7 @@ def _jax_grads(fn, q, k, v, dout):
     return vjp(jnp.asarray(dout))
 
 
-@pytest.mark.parametrize("B,S,H,KV,D,causal,window", CASES)
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", CASES + CASES_D256)
 def test_plain_backward_matches_jax(B, S, H, KV, D, causal, window):
     q, k, v, dout = _inputs(B, S, H, KV, D)
     tq, tk, tv, tdo = (torch.as_tensor(x) for x in (q, k, v, dout))
@@ -92,7 +101,7 @@ def test_autograd_function_matches_jax(B, S, H, KV, D, causal, window):
         _close(g, w)
 
 
-@pytest.mark.parametrize("B,S,H,KV,D,causal,window", CASES)
+@pytest.mark.parametrize("B,S,H,KV,D,causal,window", CASES + CASES_D256)
 def test_forward_lse_matches_flash_fwd_shaped(B, S, H, KV, D, causal,
                                               window):
     q, k, v, _ = _inputs(B, S, H, KV, D, seed=2)
@@ -162,9 +171,13 @@ LOG2E = 1.4426950408889634
 TILE = 64
 
 
-def _rounded_product(a, b, split):
+def _rounded_product(a, b, split, cols=None):
     """a b as the kernels issue it: a rounded to bf16 hi (+ lo = a - hi,
-    rounded), b bf16, float sums."""
+    rounded), b bf16, float sums; with ``cols``, b's columns in blocks of
+    that many, one product each (the D = 256 instances' column split)."""
+    if cols is not None and cols < b.shape[-1]:
+        return torch.cat([_rounded_product(a, b[..., c:c + cols], split)
+                          for c in range(0, b.shape[-1], cols)], dim=-1)
     hi = a.bfloat16().float()
     out = hi @ b
     if split:
@@ -173,8 +186,9 @@ def _rounded_product(a, b, split):
 
 
 def _bwd_emulated(q, k, v, out, lse, dout, *, causal=True, window=0,
-                  split_p=True, split_ds=True):
-    """dq_wgmma_kernel's and dkdv_wgmma_kernel's arithmetic."""
+                  split_p=True, split_ds=True, cols=None):
+    """dq_wgmma_kernel's and dkdv_wgmma_kernel's arithmetic; ``cols``: the
+    output columns of a block (128 at D = 256), else all of D."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G, off, scale = H // KV, Sk - Sq, D ** -0.5
@@ -209,7 +223,7 @@ def _bwd_emulated(q, k, v, out, lse, dout, *, causal=True, window=0,
             _, ds = p_ds(qf[..., q0:q1, :] @ K.transpose(-1, -2),
                          dof[..., q0:q1, :] @ V.transpose(-1, -2), ok,
                          lse2[..., q0:q1, None], delta[..., q0:q1, None])
-            dq[..., q0:q1, :] += _rounded_product(ds, K, split_ds)
+            dq[..., q0:q1, :] += _rounded_product(ds, K, split_ds, cols)
     dk, dv = torch.zeros(B, KV, Sk, D), torch.zeros(B, KV, Sk, D)
     for k0 in range(0, Sk, TILE):
         k1 = min(k0 + TILE, Sk)
@@ -227,8 +241,8 @@ def _bwd_emulated(q, k, v, out, lse, dout, *, causal=True, window=0,
                                V @ dO.transpose(-1, -2), ok,
                                lse2[:, :, g, None, q0:q1],
                                delta[:, :, g, None, q0:q1])
-                dv[:, :, k0:k1] += _rounded_product(pt, dO, split_p)
-                dk[:, :, k0:k1] += _rounded_product(dst, Q, split_ds)
+                dv[:, :, k0:k1] += _rounded_product(pt, dO, split_p, cols)
+                dk[:, :, k0:k1] += _rounded_product(dst, Q, split_ds, cols)
     dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
     return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
             dv.permute(0, 2, 1, 3).to(v.dtype))
@@ -310,3 +324,27 @@ def test_bwd_single_rounding_of_p_or_ds_against_the_rule(case,
     # the gradients it feeds move by more than 2 ulps, the others do not
     for name, (_, ulps) in results.items():
         assert (ulps > 2.0) == (name in moved), (name, ulps)
+
+
+# D = 256 (recurrentgemma-2b's local attention, 10 query heads on one KV
+# head): the instances split each kernel's output columns into two
+# 128-wide blocks, each contracting all of D in S and dP.  Every output
+# column is computed as without the split, so the emulation with blocks of
+# 128 columns equals the unsplit one bit for bit and holds the same rule.
+D256_BWD_CASES = [
+    # B, Sq, Sk, H, KV, D, window, causal
+    (1, 192, 192, 5, 1, 256, 0, True),   # GQA G = 5, causal
+    (1, 200, 200, 2, 1, 256, 64, True),  # a window, a ragged S
+]
+
+
+@pytest.mark.parametrize("case", D256_BWD_CASES)
+def test_bwd_tensor_core_rounding_at_d256_with_the_column_split(case):
+    args, opts, want = _bf16_bwd_inputs(*case)
+    got = _bwd_emulated(*args, **opts, cols=128)
+    unsplit = _bwd_emulated(*args, **opts)
+    for g, u, w in zip(got, unsplit, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert torch.equal(g, u)
+        bad, ulps = _bwd_rule(g, w)
+        assert bad == 0 and ulps <= 1.0
