@@ -77,8 +77,13 @@ failure:
    CUDA inputs and the forward kernel's float32 states (themselves held
    bit for bit to the plain loop's): recurrentgemma-2b's training
    microbatch (2 x 2048 x 2560) in bf16 and float32, with and without h0
-   and a gradient of h_last, and S = 1, S = 37, W = 1001, B = 1, each
-   printing whether it is bit-identical; a call on an input that requires
+   and a gradient of h_last, and S = 1, 15, 37, 65 and 2047 (bf16), 33
+   (float32: a chunk and one step), W = 1001, B = 1 and a g one element
+   off a 16-byte boundary, each bit-identical to the plain version and
+   each checking which kernel its launch chose (the chunked one, a
+   reverse TMA ring, at any S with rows TMA can address; the loop
+   kernel at W = 1001 and the misaligned g); a call on an input
+   that requires
    grad launches the forward once and records ``LinearRecurrence``'s
    grad_fn, its backward launches ``rglru_scan_bwd`` once, and its
    gradients are held to torch.autograd through the plain forward on the
@@ -307,8 +312,9 @@ failure:
    batches of 8 x 2048 in 4 microbatches of 2 x 2048, 12 steps, warmup 4,
    every launch counter reset just before and read just after.  Checks:
    every loss finite; the mean of the last 4 below the first 4's; per
-   microbatch the recurrence 36 launches (all chunked), its backward 18,
-   flash 16 and the flash backward 8, nothing else; the peak at most
+   microbatch the recurrence 36 launches (all chunked), its backward 18
+   (all chunked), flash 16 and the flash backward 8, nothing else; the
+   peak at most
    75 GB.  (b) At one (R, R, A) period, full width, float32, B 2, S 256:
    first-step gradients within 1e-4 relative (per tensor, to its largest
    element) of the port on the CPU, 3 steps' losses within rtol 1e-5.
@@ -316,8 +322,10 @@ failure:
    bit-identical loss and gradients.  (d) Timing: step ms (median of 5
    after a warm-up), tokens/s, the model FLOPs' share of the bf16 tensor
    peak and one profiled step's busy share and top device events;
-   ``rglru_scan_bwd`` (beside its plain version, its bound and the
-   forward with and without its float32 states) and the flash pair at
+   ``rglru_scan_bwd`` (the chunked kernel beside the loop kernel on the
+   same values with g misaligned, the loop kernel's earlier time, the
+   plain version, its bound and the forward with and without its float32
+   states) and the flash pair at
    D = 256 (beside the plain versions, SDPA and the bound) at the
    microbatch shape, CUDA-graph replays.  Prints the phase's seconds.
 
@@ -471,6 +479,11 @@ P19_DEPTH_CUT = (("yi-34b", 4), ("deepseek-coder-33b", 4))
 # CPU at one (R, R, A) period
 P20_ARCH, P20_BATCH, P20_SEQ, P20_ACCUM = "recurrentgemma-2b", 8, 2048, 4
 P20_STEPS, P20_WARMUP, P20_CPU_LAYERS = 12, 4, 3
+# the backward's loop kernel (a thread a channel) at the microbatch shape,
+# bf16, on aligned inputs, before the chunked kernel took that shape:
+# CUDA-graph replays on an H100 80GB HBM3 at 700 W; phase 20d prints it
+# beside this run's times of both kernels
+LOOP_BWD_EARLIER_MS = 0.1751
 # a pool drawn on the card against one drawn on the CPU (phases 4 and 18):
 # the same float64 expressions, but exp rounds differently (each within an
 # ulp), and the inverse of Eq. 1 divides an error in F by the density,
@@ -855,21 +868,61 @@ def serving_kernels_vs_plain(torch):
 
 
 # phase 6's backward cases: label, B, S, W, with h0, with a gradient of h,
-# with one of h_last, dtype; recurrentgemma-2b's training microbatch is
-# 2 x 2048 x 2560 (no h0, no gradient of h_last, as the model trains)
+# with one of h_last, dtype, the kernel the launch must choose;
+# recurrentgemma-2b's training microbatch is 2 x 2048 x 2560 (no h0, no
+# gradient of h_last, as the model trains).  The chunked kernel walks S in
+# chunks of 64 steps in bf16, 32 in float32: S = 65 and 33 leave a top
+# chunk of one step, S = 1 and 15 have only a partial one.
 REC_BWD_CASES = (
-    ("train", 2, 2048, 2560, False, True, False, "bf16"),
-    ("train float32", 2, 2048, 2560, False, True, False, "f32"),
-    ("train h0 g_last", 2, 2048, 2560, True, True, True, "bf16"),
-    ("train h0 g_last float32", 2, 2048, 2560, True, True, True, "f32"),
-    ("train h0", 2, 2048, 2560, True, True, False, "bf16"),
-    ("train g_last", 2, 2048, 2560, False, True, True, "bf16"),
-    ("train g_last only", 2, 2048, 2560, True, False, True, "bf16"),
-    ("S=1", 8, 1, 2560, True, True, True, "bf16"),
-    ("S=37", 2, 37, 2560, True, True, False, "bf16"),
-    ("W=1001", 2, 100, 1001, True, True, True, "bf16"),
-    ("B=1", 1, 2048, 2560, False, True, False, "bf16"),
+    ("train", 2, 2048, 2560, False, True, False, "bf16", "chunked"),
+    ("train float32", 2, 2048, 2560, False, True, False, "f32", "chunked"),
+    ("train h0 g_last", 2, 2048, 2560, True, True, True, "bf16", "chunked"),
+    ("train h0 g_last float32", 2, 2048, 2560, True, True, True, "f32",
+     "chunked"),
+    ("train h0", 2, 2048, 2560, True, True, False, "bf16", "chunked"),
+    ("train g_last", 2, 2048, 2560, False, True, True, "bf16", "chunked"),
+    ("train g_last only", 2, 2048, 2560, True, False, True, "bf16",
+     "chunked"),
+    ("S=1", 8, 1, 2560, True, True, True, "bf16", "chunked"),
+    ("S=15 h0 g_last", 2, 15, 2560, True, True, True, "bf16", "chunked"),
+    ("S=37", 2, 37, 2560, True, True, False, "bf16", "chunked"),
+    ("S=65 h0", 2, 65, 2560, True, True, False, "bf16", "chunked"),
+    ("S=33 h0 float32", 2, 33, 2560, True, True, False, "f32", "chunked"),
+    ("S=2047 h0 g_last", 2, 2047, 2560, True, True, True, "bf16",
+     "chunked"),
+    ("W=1001", 2, 100, 1001, True, True, True, "bf16", "loop"),
+    ("B=1", 1, 2048, 2560, False, True, False, "bf16", "chunked"),
 )
+
+
+def in_new_thread(fn):
+    """``fn()``'s result, called on a new thread; its exception, if any,
+    raised here."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["result"] = fn()
+        except BaseException as e:     # re-raised on the calling thread
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout=300)
+    check(not t.is_alive(), "a call on a new thread did not end in 300 s")
+    if "error" in out:
+        raise out["error"]
+    return out["result"]
+
+
+def misaligned(torch, x):
+    """A contiguous copy of ``x`` that starts one element past a 16-byte
+    boundary, so that TMA cannot address its rows."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def rglru_bwd_vs_plain(torch, gen):
@@ -895,8 +948,36 @@ def rglru_bwd_vs_plain(torch, gen):
                   if with_g_last else None)
         return a, b, h0, g, g_last
 
+    def held(label, route, a, states, g, g_last, h0):
+        """One backward launch on these inputs: it must choose ``route``
+        and equal the plain version bit for bit."""
+        fn = rs.linear_recurrence_bwd
+        before = dict(fn.launches_by_kernel)
+        got = fn(a, states, g, g_last, h0)
+        ran = [k for k, n in fn.launches_by_kernel.items()
+               if n != before[k]]
+        check(ran == [route] and sum(fn.launches_by_kernel.values())
+              == sum(before.values()) + 1,
+              f"recurrence bwd {label}: launched {ran}, expected one launch "
+              f"of the {route} kernel")
+        want = rs.linear_recurrence_bwd_plain(a, states, g, g_last, h0)
+        torch.cuda.synchronize()
+        err = 0.0
+        for name, x, y in zip(("da", "db", "dh0"), got, want):
+            if y is None:
+                check(x is None, f"recurrence bwd {label}: {name} not None")
+                continue
+            err = max(err, agree(
+                torch, f"recurrence bwd {label} {tuple(a.shape)} {a.dtype} "
+                       f"{name}", x, y))
+            check(bool(torch.equal(x, y)), f"recurrence bwd {label}: {name}"
+                                           f" is not bit-identical to the "
+                                           f"plain version's")
+        return err
+
     worst = 0.0
-    for label, B, S, W, with_h0, with_g, with_g_last, dt in REC_BWD_CASES:
+    for (label, B, S, W, with_h0, with_g, with_g_last, dt,
+         route) in REC_BWD_CASES:
         dt = {"bf16": bf16, "f32": f32}[dt]
         a, b, h0, g, g_last = draw(B, S, W, with_h0, with_g_last, dt,
                                    with_g)
@@ -904,25 +985,35 @@ def rglru_bwd_vs_plain(torch, gen):
         same_states = bool(torch.equal(states, rs._states_plain(a, b, h0)))
         check(same_states, f"recurrence bwd {label}: the forward's float32 "
                            f"states differ from the plain loop's")
-        before = rs.linear_recurrence_bwd.launches
-        got = rs.linear_recurrence_bwd(a, states, g, g_last, h0)
-        check(rs.linear_recurrence_bwd.launches == before + 1,
-              f"recurrence bwd {label}: no launch counted")
-        want = rs.linear_recurrence_bwd_plain(a, states, g, g_last, h0)
-        torch.cuda.synchronize()
-        same = []
-        for name, x, y in zip(("da", "db", "dh0"), got, want):
-            if y is None:
-                check(x is None, f"recurrence bwd {label}: {name} not None")
-                continue
-            worst = max(worst, agree(
-                torch, f"recurrence bwd {label} {tuple(a.shape)} {dt} "
-                       f"{name}", x, y))
-            same.append(f"{name} {bool(torch.equal(x, y))}")
-        print(f"[serve-kernels] recurrence bwd {label}: float32 states "
-              f"bit-identical to the plain loop's {same_states}; "
-              f"bit-identical {', '.join(same)}")
-        del a, b, h0, g, g_last, states, got, want
+        worst = max(worst, held(label, route, a, states, g, g_last, h0))
+        print(f"[serve-kernels] recurrence bwd {label}: {route} kernel; "
+              f"float32 states and da, db"
+              f"{', dh0' if with_h0 else ''} bit-identical to the plain "
+              f"versions")
+        if label == "train h0 g_last":
+            # the same inputs, g one element off a 16-byte boundary: the
+            # choice rule sends the call to the loop kernel
+            worst = max(worst, held("misaligned g", "loop", a, states,
+                                    misaligned(torch, g), g_last, h0))
+            print("[serve-kernels] recurrence bwd misaligned g: loop "
+                  "kernel; bit-identical to the plain version")
+        del a, b, h0, g, g_last, states
+    # a thread that has made no CUDA call yet, as autograd's backward
+    # thread is when this backward is its first work: the TMA maps of both
+    # kernels are built there too
+    a, b, h0, g, g_last = draw(2, 256, 2560, True, True, bf16)
+    _, _, states = rs._forward(a, b, h0, keep_states=True)
+    want = rs.linear_recurrence_bwd_plain(a, states, g, g_last, h0)
+    got = in_new_thread(lambda: (rs._forward(a, b, h0, keep_states=True)[2],
+                                 rs.linear_recurrence_bwd(a, states, g,
+                                                          g_last, h0)))
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got[0], states)) and all(
+        bool(torch.equal(x, y)) for x, y in zip(got[1], want)),
+          "the recurrence on a new thread differs from the plain version")
+    print("[serve-kernels] recurrence forward and backward on a thread that "
+          "had made no CUDA call: bit-identical to the plain versions")
+    del a, b, h0, g, g_last, states, want, got
     # the Function: a call on an input that requires grad launches the
     # forward and records a grad_fn, and its backward launches the backward
     # kernel once; its gradients against torch.autograd through the plain
@@ -3381,6 +3472,7 @@ def rg_train_run(torch):
     wall = time.perf_counter() - t0
     launches = counts(fns)
     by_kernel = dict(linear_recurrence.launches_by_kernel)
+    bwd_by_kernel = dict(linear_recurrence_bwd.launches_by_kernel)
     peak = torch.cuda.max_memory_allocated()
     n_mb = P20_STEPS * P20_ACCUM
     per_mb = {"flash_attention": 2 * n_att, "flash_attention_bwd": n_att,
@@ -3393,7 +3485,8 @@ def rg_train_run(torch):
           f"<= {P19_PEAK_LIMIT / 1e9:.0f})")
     print(f"[p20] launches {launches}; expected {want} ({n_mb} microbatches"
           f" x {per_mb}: the forward and remat's recompute of each layer, one"
-          f" backward a layer); the recurrence's by kernel {by_kernel}")
+          f" backward a layer); the recurrence's by kernel {by_kernel}, "
+          f"its backward's {bwd_by_kernel}")
     check(all(np.isfinite(losses)), "phase 20: a loss is not finite")
     first, last = np.mean(losses[:4]), np.mean(losses[-4:])
     print(f"[p20] mean of the first 4 losses {first:.4f}, of the last 4 "
@@ -3402,6 +3495,10 @@ def rg_train_run(torch):
     check(launches == want, f"phase 20: launches {launches} != {want}")
     check(by_kernel == {"loop": 0, "chunked": want["linear_recurrence"]},
           f"phase 20: the recurrence's launches by kernel {by_kernel}")
+    check(bwd_by_kernel == {"loop": 0,
+                            "chunked": want["linear_recurrence_bwd"]},
+          f"phase 20: the recurrence's backward launches by kernel "
+          f"{bwd_by_kernel}")
     check(peak <= P19_PEAK_LIMIT, f"phase 20: the peak {peak} passes "
                                   f"{P19_PEAK_LIMIT}: raise grad_accum")
     run = {"train_wall_s": wall, "losses": losses,
@@ -3522,9 +3619,10 @@ def rg_card_vs_cpu(torch):
 
 def rg_kernel_times(torch):
     """Phase 20d, the kernels at the microbatch shape (CUDA-graph replays):
-    rglru_scan_bwd beside its plain version and its bound, the forward
-    with and without its float32 states, and the flash pair at D = 256
-    beside the plain versions, SDPA and the bound."""
+    rglru_scan_bwd (the chunked kernel, and the loop kernel on the same
+    values with g misaligned) beside its plain version and its bound, the
+    forward with and without its float32 states, and the flash pair at
+    D = 256 beside the plain versions, SDPA and the bound."""
     from repro_torch import configs
     from repro_torch.kernels import rglru_scan as rs
     from repro_torch.kernels.flash_attention import flash_attention
@@ -3536,27 +3634,40 @@ def rg_kernel_times(torch):
     b, g = (torch.randn((B, S, W), generator=gen, device="cuda").bfloat16()
             for _ in range(2))
     _, _, states = rs._forward(a, b, None, keep_states=True)
+    g_off = misaligned(torch, g)
     n = a.numel()
+    fn = rs.linear_recurrence_bwd
+    before = dict(fn.launches_by_kernel)
     rec = with_bound({
-        "ms": graph_ms(torch, [lambda: rs.linear_recurrence_bwd(
-            a, states, g)] * 3),
+        "ms": graph_ms(torch, [lambda: fn(a, states, g)] * 3),
         "plain_ms": cuda_ms(torch, lambda: rs.linear_recurrence_bwd_plain(
             a, states, g)),
         "library_ms": None,
         "ops": 3 * n,
         # a, g and the float32 states in; da, db out
         "bytes": n * (4 * a.element_size() + 4)})
+    chunked = fn.launches_by_kernel["chunked"] - before["chunked"]
+    # the loop kernel on the same values, g one element off a 16-byte
+    # boundary so that the choice rule sends the call there
+    rec["loop_ms"] = graph_ms(torch, [lambda: fn(a, states, g_off)] * 3)
+    check(chunked > 0 and fn.launches_by_kernel["loop"] > before["loop"],
+          "phase 20d: the backward's timings did not run both kernels")
     rec["forward_with_states_ms"] = graph_ms(torch, [
         lambda: rs._forward(a, b, None, keep_states=True)] * 3)
     rec["forward_ms"] = graph_ms(torch, [
         lambda: rs._forward(a, b, None, keep_states=False)] * 3)
     print(f"[timing] rglru_scan_bwd at {tuple(a.shape)} bf16: "
-          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, no library "
-          f"call, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+          f"{rec['ms']:.4f} ms (the chunked kernel), plain "
+          f"{rec['plain_ms']:.4f} ms, no library call, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
           f"{rec['bytes']:.4g} B), {rec['bound_ms'] / rec['ms']:.1%} of it; "
-          f"the forward {rec['forward_ms']:.4f} ms, with its float32 states "
+          f"the loop kernel {rec['loop_ms']:.4f} ms in this run "
+          f"({rec['bound_ms'] / rec['loop_ms']:.1%}; it took "
+          f"{LOOP_BWD_EARLIER_MS} ms at aligned inputs in an earlier run on "
+          f"an H100 80GB HBM3 at 700 W); the forward "
+          f"{rec['forward_ms']:.4f} ms, with its float32 states "
           f"{rec['forward_with_states_ms']:.4f} ms")
-    del a, b, g, states
+    del a, b, g, g_off, states
 
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
 
@@ -3997,6 +4108,7 @@ def main() -> int:
         "max_abs_err": errs["rglru_scan_bwd"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": None,
+        "loop_kernel_ms": t["loop_ms"],
         "launches_by_path": {
             "recurrentgemma_training": p20_launches["linear_recurrence_bwd"]}})
     print(f"[phases] seconds by phase: {json.dumps(phase_s)}; total "

@@ -1009,6 +1009,8 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
     err = cudaFuncSetAttribute(
         kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
+  err = hop::bind_context();           // the maps need a current context
+  if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv, tdo;
   if (!hop::tensor_map_bshd(&tq, q, B, Sq, H, D) ||
       !hop::tensor_map_bshd(&tk, k, B, Sk, KV, D) ||

@@ -352,6 +352,23 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
+// cuTensorMapEncodeTiled, like every libcuda call, needs a current
+// context, which a thread that has made no runtime call yet does not have
+// (autograd's backward thread, where a kernel's backward is the first work
+// it is given: the call then fails with CUDA_ERROR_INVALID_CONTEXT).  A
+// launcher that builds maps calls this first: cudaSetDevice on the current
+// device binds that device's primary context to the calling thread, once
+// a thread.  Returns the runtime's error where that fails.
+inline cudaError_t bind_context() {
+  thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  bound = err == cudaSuccess;
+  return err;
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime's entry-point query
 // so that no library links libcuda; null where it is missing.
 inline EncodeTiledFn encode_tiled() {

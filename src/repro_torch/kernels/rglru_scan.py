@@ -18,8 +18,12 @@ kernel, which is built at first use, or the call raises.
 and ``linear_recurrence.launches_by_kernel`` splits them by the kernel the
 launch chose: ``"chunked"`` (the TMA ring, S >= 16 with rows TMA can
 address) or ``"loop"`` (a thread per channel: decode steps and other
-shapes); ``linear_recurrence_bwd.launches`` counts the backward's, one a
-call.
+shapes).  ``linear_recurrence_bwd.launches`` counts the backward's, one a
+call, and ``linear_recurrence_bwd.launches_by_kernel`` splits them the
+same way: ``"chunked"`` (a reverse TMA ring over 32-channel slices, at
+any S where a, g, the states, da and db have rows TMA can address) or
+``"loop"`` (a thread per channel: W = 1001, misaligned views).  The
+choice depends on shape and alignment alone.
 
 :func:`linear_recurrence_plain` is the counterpart of
 ``repro.kernels.ref.linear_recurrence``: a sequential loop with a float32
@@ -131,7 +135,7 @@ def _library():
     fn.restype = ctypes.c_int
     fn = lib.linear_recurrence_bwd_launch
     fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_int), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.linear_recurrence_error_string.argtypes = [ctypes.c_int]
     lib.linear_recurrence_error_string.restype = ctypes.c_char_p
@@ -215,15 +219,18 @@ def linear_recurrence_bwd(a, states, g=None, g_last=None, h0=None):
     lib = _library()
     da, db = torch.empty_like(a), torch.empty_like(a)
     dh0 = None if h0 is None else torch.empty_like(h0)
+    kernel_run = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         err = lib.linear_recurrence_bwd_launch(
             a.data_ptr(), states.data_ptr(), _ptr(g), _ptr(g_last),
             _ptr(h0), da.data_ptr(), db.data_ptr(), _ptr(dh0),
-            DTYPES[a.dtype], B, S, W,
+            DTYPES[a.dtype], B, S, W, ctypes.byref(kernel_run),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(lib, err, "linear_recurrence_bwd")
-    if B * W:
+    if kernel_run.value >= 0:          # B * W == 0 launches nothing
         linear_recurrence_bwd.launches += 1
+        linear_recurrence_bwd.launches_by_kernel[
+            _KERNEL_NAMES[kernel_run.value]] += 1
     return da, db, dh0
 
 
@@ -231,6 +238,7 @@ _KERNEL_NAMES = ("loop", "chunked")
 linear_recurrence.launches = 0
 linear_recurrence.launches_by_kernel = dict.fromkeys(_KERNEL_NAMES, 0)
 linear_recurrence_bwd.launches = 0
+linear_recurrence_bwd.launches_by_kernel = dict.fromkeys(_KERNEL_NAMES, 0)
 
 
 class LinearRecurrence(torch.autograd.Function):
