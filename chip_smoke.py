@@ -283,12 +283,13 @@ failure:
    greedy decode steps fed back through the embedding table at default
    positions, every kernel count reset just before and read just after.
    Checks: flash n_layers launches a prefill and decode n_layers a step,
-   nothing else; every logit finite; decode step 1 against a full forward
-   over the embeddings plus the token's table row, positions extended,
-   within LOGIT_TOL_BF16; at 2 layers, full width, float32, B 2, 64
-   inputs, 8 tokens, the card's logits within LOGIT_TOL_F32 of the port on
-   the CPU.  Times prefill, decode per step (tokens/s) and the decode
-   steps' busy share.  (b) Training through ``steps.make_train_step``
+   nothing else; every logit finite; the peak at most 75 GB; decode step
+   1 against a full forward over the embeddings plus the token's table
+   row, positions extended, within LOGIT_TOL_BF16; at 2 layers, full
+   width, float32, B 2, 64 inputs, 8 tokens, the card's logits within
+   LOGIT_TOL_F32 of the port on the CPU.  Times prefill, decode per step
+   (tokens/s), the decode steps' busy share and one profiled prefill's
+   busy share and top device events.  (b) Training through ``steps.make_train_step``
    (bf16 compute, float32 masters, remat) on {embeds, labels, mask[,
    positions]} at 8 x 2048.  Checks: one step launches flash 2 x n_layers
    and the backward n_layers, nothing else; the loss finite; its peak at
@@ -328,6 +329,41 @@ failure:
    states) and the flash pair at
    D = 256 (beside the plain versions, SDPA and the bound) at the
    microbatch shape, CUDA-graph replays.  Prints the phase's seconds.
+21. The MoE archs: moonshot-v1-16b-a3b (48 layers, d_model 2048, 16 heads
+   of 128, 64 experts of d_ff 1408, top 6, vocab 163,840) and
+   phi3.5-moe-42b-a6.6b (d_model 4096, 32 / 8 heads of 128, 16 experts of
+   d_ff 6400, top 2, vocab 32,064) at full width, bf16, capacity factor
+   1.25 (``models/moe.py``: top-k routing from a stable sort, grouped
+   capacity slots, dispatch and combine by index).  (a) Serving, as
+   phase 19a, 8 x 2048 token prompts and 31 greedy decode steps,
+   moonshot at full depth and phi3.5-moe at 24 of its 32 layers (the 32
+   layers' bf16 weights overfill the card).  Checks: the launches, every
+   logit finite, the peak at most 75 GB; the share of (token, k) pairs
+   the prefill dropped at capacity printed, pooled and layer by layer
+   beside the mean cosine of two tokens' router inputs in a group (and
+   of their embeddings), and what uniform random routing would drop at
+   the same capacity; decode step 1 against a full
+   forward on a copy of the config with ``capacity_factor = n_experts``
+   (capacity Tg * K: nothing drops; with drops the two group the tokens
+   differently) at 2 x 256 prompts, within LOGIT_TOL_BF16; at full width,
+   float32, 2 layers (moonshot) or 1 (phi3.5), B 2, 64 prompts, 8 tokens,
+   the card against the CPU within LOGIT_TOL_F32 with every routing
+   (experts, kept slots, capacity) identical.  Times prefill, decode a
+   step (tokens/s), busy shares and one profiled prefill's top device
+   events, beside the floors: a decode step reads every expert's weights,
+   a prefill runs the expert products on every capacity slot.  (b)
+   Training at full width, 2 layers, as phase 19b: 8 steps of SyntheticLM
+   8 x 2048 (moonshot in 2 microbatches).  Checks: the first step's
+   launches (flash 2 x L and the backward L a microbatch), every loss
+   finite, the peak at most 75 GB; at 1 layer, float32, B 2, S 256 the
+   card's loss (rtol 1e-6) and every gradient, router and experts
+   included (atol 1e-6 + rtol 1e-4), against the CPU's with the routing
+   identical (a near-tie that flips a route fails the check, and says
+   so); at 1 layer in bf16, 2 x 2048, two runs of a step bit-identical.
+   Times the step, tokens/s, the peak, the busy share and the model-FLOP
+   share of the bf16 peak with N = ``cfg.active_param_count()``.  (c)
+   The attention kernels at each model's shape, as phase 19c.  Prints the
+   phase's seconds.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -356,9 +392,11 @@ DELTA_ALT = 2                  # a second checkpoint delay, phase 3
 RO_HOURS = 0.3                 # restart overhead for the dollar check
 OPS_PER_CANDIDATE = 20         # f32 operations per (candidate, lane), a
                                # division counted as one
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+# H100 SXM device memory rate and dense bf16 tensor-core peak, the
+# numbers of repro_torch.analytics.H100_SXM (a test holds them equal)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_OPS = 989e12
 FP32_LANES_PER_SM = 128        # FP32 units per Hopper SM, 2 ops per FMA
-BF16_TENSOR_OPS = 989e12       # H100 SXM dense bf16 tensor-core peak
 BWD_ISSUED_OPS_PER_PAIR = 20   # x D: the bf16 flash backward's tensor-core
                                # work a visible pair (S and dP in both of its
                                # kernels, dQ, dK, dV with P and dS as hi + lo)
@@ -471,6 +509,19 @@ P19_PEAK_LIMIT = 75e9
 # ... and the two 33-34 B dense archs at full width, cut to 4 layers (~68 GB
 # of bf16 weights whole), serving only
 P19_DEPTH_CUT = (("yi-34b", 4), ("deepseek-coder-33b", 4))
+# phase 21: the MoE archs, serving 8 x 2048 token prompts with 32 greedy
+# tokens at full width (phi3.5-moe cut to 24 of its 32 layers: the 32
+# layers' 83.7 GB of bf16 weights overfill the card) and training at full
+# width, 2 layers, 8 steps of 8 x 2048.  Per arch: (arch, key in the
+# kernel line's launches_by_path, serving depth (None: full), training
+# grad_accum (moonshot's 163,840-wide logits: 2 microbatches), serving
+# layers of the card-vs-CPU check (~7 / 6 GB of float32 on the host))
+P21_ARCHS = (("moonshot-v1-16b-a3b", "moonshot", None, 2, 2),
+             ("phi3.5-moe-42b-a6.6b", "phi3_5_moe", 24, 1, 1))
+P21_TRAIN_LAYERS, P21_STEPS = 2, 8
+# decode step 1 against a full forward at no drops (capacity_factor =
+# n_experts) on 2 x 256 prompts: at 8 x 2048 the buffers would not fit
+P21_NODROP_B, P21_NODROP_S = 2, 256
 # phase 20: recurrentgemma-2b training at full width and depth (18 RG-LRU
 # and 8 local-attention layers), global batch 8 x 2048 in microbatches of
 # 2 x 2048 (grad_accum 4: float32 masters, gradients, their accumulators
@@ -1266,6 +1317,27 @@ def with_bound(r):
     r["bound_ms"] = max(t_ops, t_bytes)
     r["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
     return r
+
+
+def train_model_flops(cfg, B, S):
+    """Model FLOPs of one train step on B x S tokens and their attention
+    part: 6 N tokens, N = ``cfg.active_param_count()`` (every parameter
+    of a dense model, top_k of n_experts experts a token in an MoE one),
+    plus 12 D H a visible query-key pair in each attention layer (causal,
+    or within the window of a local one)."""
+    period = cfg.block_pattern
+    attn = 0
+    for i in range(cfg.n_layers):
+        kind = period[i % len(period)]
+        if kind in ("attn", "moe"):
+            pairs = S * (S + 1) // 2
+        elif kind == "local_attn":
+            w = min(cfg.window or S, S)
+            pairs = sum(min(j + 1, w) for j in range(S))
+        else:
+            continue
+        attn += 12 * cfg.head_dim * pairs * B * cfg.n_heads
+    return 6 * cfg.active_param_count() * B * S + attn, attn
 
 
 def flash_pair_times(torch, q, k, v, out, lse, dout, window=0):
@@ -2765,10 +2837,10 @@ def training_timing(torch, bwd_inputs, smi, work):
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_params = sum(p.numel() for p in params.values())
+    check(n_params == cfg.active_param_count(), "smollm: parameter count")
     pairs = TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
     D, H = cfg.head_dim, cfg.n_heads
-    attn_flops = 12 * D * pairs * TRAIN_BATCH * H * cfg.n_layers
-    flops = 6 * n_params * tokens + attn_flops
+    flops, attn_flops = train_model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ)
     timing = {"train_step_ms": step_ms,
               "tokens_per_s": tokens / (step_ms / 1e3),
               "peak_device_bytes": peak, "params": n_params,
@@ -3101,16 +3173,104 @@ def embeds_batch(torch, cfg, B, S, gen, dtype):
     return batch
 
 
-def phase19_serving(torch, arch, n_layers=None):
-    """Phase 19a: ``arch`` at full width (and depth, unless ``n_layers``)
-    through the port's prefill and decode steps: 8 x 2048 inputs (seeded
-    bf16 embeddings, and distinct M-RoPE streams, for an embeds-input arch;
-    token prompts otherwise), 31 greedy decode steps fed back through the
-    embedding table at default positions, with the kernels' counts reset
-    just before and read just after.  Checks the launches, every logit
-    finite and decode step 1 against a full forward; for an embeds-input
-    arch also the card against the CPU at 2 layers in float32, and the
-    serving times.  Returns the model, the launches and the numbers."""
+def recorded_routes(n_alike=0):
+    """A patch of ``moe.route`` and ``moe.router_probs`` that keeps, inside
+    its ``with`` block, every call's routing and, for the first
+    ``n_alike`` calls, how alike the router's inputs are
+    (``mean_cosine``).  Returns the patch and the two lists."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+    calls, alike, real, real_probs = [], [], moe.route, moe.router_probs
+
+    def spy(cfg, probs):
+        calls.append(real(cfg, probs))
+        return calls[-1]
+
+    def spy_probs(cfg, router, xt):
+        if len(alike) < n_alike:
+            alike.append(mean_cosine(xt))
+        return real_probs(cfg, router, xt)
+
+    return (mock.patch.multiple(moe, route=spy, router_probs=spy_probs),
+            calls, alike)
+
+
+def mean_cosine(xt):
+    """The mean cosine between two distinct rows of a group of ``xt`` (G,
+    Tg, d), over the groups: a 0-d float32 tensor."""
+    u = xt.float()
+    u = u / u.norm(dim=-1, keepdim=True)
+    n = u.shape[1]
+    return ((u.sum(1).square().sum(-1) - n) / (n * (n - 1))).mean()
+
+
+def random_routing_dropped(torch, cfg, G, Tg, seed=21):
+    """The share of (token, k) pairs that capacity drops when each
+    token's K experts are drawn uniformly, in ``G`` groups of ``Tg``
+    tokens: what routing with no preference would drop."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    probs = torch.softmax(torch.rand((G, Tg, cfg.n_experts), generator=gen,
+                                     device="cuda"), -1)
+    return float((moe.route(cfg, probs).slot < 0).float().mean())
+
+
+def same_routes(calls, label):
+    """The routes recorded on the card against those on the CPU, call by
+    call in order: the experts, the kept slots and the capacity must be
+    identical.  Returns the number of (token, k) pairs compared."""
+    card = [r for r in calls if r.idx.is_cuda]
+    cpu = [r for r in calls if not r.idx.is_cuda]
+    check(len(card) == len(cpu) > 0,
+          f"{label}: {len(card)} routings on the card, {len(cpu)} on the CPU")
+    pairs = 0
+    for i, (g, c) in enumerate(zip(card, cpu)):
+        flipped = int((g.idx.cpu() != c.idx).sum())
+        moved = int((g.slot.cpu() != c.slot).sum())
+        check(g.capacity == c.capacity and flipped == 0 and moved == 0,
+              f"{label}: routing {i} differs between the card and the CPU: "
+              f"{flipped} (token, k) pairs chose another expert and {moved} "
+              f"another slot (a near-tie between two experts' "
+              f"probabilities flipped a route); capacity {g.capacity} / "
+              f"{c.capacity}")
+        pairs += c.idx.numel()
+    return pairs
+
+
+def moe_floors(cfg, B, S):
+    """What an MoE model's serving cannot beat on the card: a decode step
+    reads every expert's weights (the capacity buffers hold every expert),
+    and a prefill of B x S tokens runs the experts' three products on
+    every slot of the buffers.  Returns (expert bytes, decode floor ms,
+    prefill expert FLOPs, prefill floor ms)."""
+    from repro_torch.models.moe import _group_size
+    E, K, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff
+    expert_bytes = cfg.n_layers * E * 3 * d * f * 2
+    T = B * S
+    Tg = _group_size(T)
+    C = max(int(cfg.capacity_factor * Tg * K / E), 4)
+    flops = cfg.n_layers * 2 * E * (T // Tg) * C * d * f * 3
+    return (expert_bytes, expert_bytes / HBM_BYTES_PER_S * 1e3, flops,
+            flops / BF16_TENSOR_OPS * 1e3)
+
+
+def phase19_serving(torch, arch, n_layers=None, detail=True,
+                    cpu_layers=P19_CPU_LAYERS):
+    """Phases 19a and 21a: ``arch`` at full width (and depth, unless
+    ``n_layers``) through the port's prefill and decode steps: 8 x 2048
+    inputs (seeded bf16 embeddings, and distinct M-RoPE streams, for an
+    embeds-input arch; token prompts otherwise), 31 greedy decode steps fed
+    back through the embedding table at default positions, with the
+    kernels' counts reset just before and read just after.  Checks the
+    launches, every logit finite, the peak and decode step 1 against a
+    full forward (for an MoE arch on a copy of the config with
+    ``capacity_factor = n_experts``, where no pair can drop, at 2 x 256
+    prompts; it prints the share of pairs the prefill dropped).  With
+    ``detail`` also the serving times, one profiled prefill and, once the
+    model is freed, the card against the CPU at ``cpu_layers`` in float32
+    (for an MoE arch at the published capacity, routing identical).
+    Returns the config, the launches and the numbers."""
     from repro_torch import configs
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dp_recurrence import dp_recurrence
@@ -3123,6 +3283,7 @@ def phase19_serving(torch, arch, n_layers=None):
     cfg = configs.get(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    moe = cfg.family == "moe"
     t0 = time.perf_counter()
     model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                    device="cuda")
@@ -3131,8 +3292,9 @@ def phase19_serving(torch, arch, n_layers=None):
     print(f"[p19] {arch}: {cfg.n_layers} layers"
           f"{'' if n_layers is None else ' (depth cut)'}, d_model "
           f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV of "
-          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_variant}), vocab "
-          f"{cfg.vocab_size}, pos {cfg.pos_type}, tied "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_variant}"
+          f"{f', {cfg.n_experts} experts, top {cfg.top_k}, capacity factor {cfg.capacity_factor}' if moe else ''}"
+          f"), vocab {cfg.vocab_size}, pos {cfg.pos_type}, tied "
           f"{cfg.tie_embeddings}; {n_params / 1e9:.3f} B parameters, "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, drawn "
           f"in {time.perf_counter() - t0:.3f} s")
@@ -3146,14 +3308,18 @@ def phase19_serving(torch, arch, n_layers=None):
             0, cfg.vocab_size, (P19_BATCH, P19_PROMPT), generator=gen,
             device="cuda")}
 
+    patch, routes, alike = recorded_routes(
+        n_alike=cfg.n_layers if moe else 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(fns)
     t0 = time.perf_counter()
-    logits, toks = greedy_run(torch, model, batch, P19_DECODE)
+    with patch:
+        logits, toks = greedy_run(torch, model, batch, P19_DECODE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts(fns)
+    peak = torch.cuda.max_memory_allocated()
     L_ = cfg.n_layers
     want = {"flash_attention": L_, "decode_attention": L_ * (P19_DECODE - 1),
             "flash_attention_bwd": 0, "linear_recurrence": 0,
@@ -3162,54 +3328,160 @@ def phase19_serving(torch, arch, n_layers=None):
           f"{'embeddings' if cfg.embeds_input else 'tokens'}"
           f"{' with 3 M-RoPE streams' if 'positions' in batch else ''} and "
           f"{P19_DECODE - 1} greedy decode steps in {wall:.2f} s; launches "
-          f"{launches}, expected {want}; peak "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+          f"{launches}, expected {want}; peak {peak / 1e9:.2f} GB (need <= "
+          f"{P19_PEAK_LIMIT / 1e9:.0f})")
     check(launches == want, f"{arch}: launch counts {launches} != {want}")
     check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           f"{arch}: tokens out of the vocabulary")
-    d_full = decode_vs_full(torch, model, batch, LOGIT_TOL_BF16)
-    out = {"serve_wall_s": wall, "decode_vs_full_max_abs": d_full,
-           "params": n_params}
-    if not cfg.embeds_input:
-        return model, launches, out
-
-    # 2 layers at full width in float32: the card against the CPU
-    cfg2 = dataclasses.replace(cfg, n_layers=P19_CPU_LAYERS,
-                               compute_dtype="float32")
-    model2 = T.init(cfg2, torch.Generator(device="cuda").manual_seed(0),
-                    device="cuda")
-    b2 = embeds_batch(torch, cfg2, 2, 64, gen, torch.float32)
-    out["card_vs_cpu_max_abs"] = card_vs_cpu(
-        torch, model2, b2, 8, f"{arch} {P19_CPU_LAYERS} layers")
-    del model2
+    check(peak <= P19_PEAK_LIMIT, f"{arch}: serving peak {peak} passes "
+                                  f"{P19_PEAK_LIMIT}")
+    out = {"serve_wall_s": wall, "params": n_params,
+           "serve_peak_device_bytes": peak}
+    if moe:
+        prefill = routes[:L_]
+        G, Tg = prefill[0].idx.shape[:2]
+        check(len(routes) == L_ * P19_DECODE and G * Tg == P19_BATCH
+              * P19_PROMPT, f"{arch}: {len(routes)} routings recorded")
+        dropped = sum(int((r.slot < 0).sum()) for r in prefill) \
+            / sum(r.slot.numel() for r in prefill)
+        by_layer = [float((r.slot < 0).float().mean()) for r in prefill]
+        alike = [float(a) for a in alike]
+        from repro_torch.models.layers import embed
+        emb_alike = float(mean_cosine(embed(model.embed, batch["tokens"],
+                                            cfg).view(G, Tg, -1)))
+        at_random = random_routing_dropped(torch, cfg, G, Tg)
+        out.update(prefill_dropped_share=dropped,
+                   capacity=prefill[0].capacity,
+                   prefill_dropped_by_layer=by_layer,
+                   router_input_cosine_by_layer=alike,
+                   embedding_cosine=emb_alike,
+                   random_routing_dropped=at_random)
+        print(f"[p21] {arch} prefill: groups of {Tg} tokens, "
+              f"capacity {prefill[0].capacity} a group and expert; "
+              f"{dropped:.4%} of the (token, k) pairs dropped at capacity "
+              f"factor {cfg.capacity_factor}; uniform random routing "
+              f"would drop {at_random:.4%}")
+        print(f"[p21] {arch} prefill by layer (dropped share, mean cosine "
+              f"of two tokens' router inputs in a group; their embeddings' "
+              f"{emb_alike:.4f}): " + ", ".join(
+                  f"{i}: {d:.4%} {a:.4f}"
+                  for i, (d, a) in enumerate(zip(by_layer, alike))))
+        # no drops: capacity = Tg * K, which no expert can exceed
+        model.cfg = dataclasses.replace(
+            cfg, capacity_factor=float(cfg.n_experts))
+        try:
+            out["decode_vs_full_max_abs"] = decode_vs_full(
+                torch, model, batch["tokens"][:P21_NODROP_B, :P21_NODROP_S],
+                LOGIT_TOL_BF16)
+        finally:
+            model.cfg = cfg
+    else:
+        out["decode_vs_full_max_abs"] = decode_vs_full(torch, model, batch,
+                                                       LOGIT_TOL_BF16)
+    del routes
+    if not detail:
+        del model
+        torch.cuda.empty_cache()
+        return cfg, launches, out
 
     # serving times: prefill (time to first token) and decode per step
     times, first_token, decode_rest = serve_times(torch, model, batch,
                                                   P19_DECODE)
     out.update(times)
+    wall_p, dev_p, rows_p = profile_window(torch, first_token, top=10)
     tok, cache = first_token()
     wall_d, dev_d, _ = profile_window(torch, lambda: decode_rest(tok, cache))
     out["decode_device_busy_share"] = None if dev_d is None else dev_d / wall_d
+    out["prefill_device_busy_share"] = None if dev_p is None \
+        else dev_p / wall_p
+    out["prefill_top_device_events"] = [(n, round(ms, 3), c)
+                                        for n, ms, c in rows_p]
+    floors = ""
+    if moe:
+        nbytes, dec_floor, flops, pre_floor = moe_floors(cfg, P19_BATCH,
+                                                         P19_PROMPT)
+        out.update(decode_floor_ms=dec_floor, prefill_floor_ms=pre_floor,
+                   expert_bytes=nbytes, prefill_expert_flops=flops)
+        floors = (f" (floors: decode {dec_floor:.2f} ms, the experts' "
+                  f"{nbytes / 1e9:.2f} GB at the memory rate; prefill "
+                  f"{pre_floor:.2f} ms, the experts' {flops / 1e12:.2f} "
+                  f"TFLOP at the bf16 peak)")
     print(f"[p19] {arch} serving timing: prefill {out['prefill_ms']:.2f} ms, "
           f"decode {out['decode_ms_per_step']:.3f} ms a step "
-          f"({out['decode_tokens_per_s']:.1f} tokens/s), decode device busy "
-          f"share {out['decode_device_busy_share']}")
-    return model, launches, out
+          f"({out['decode_tokens_per_s']:.1f} tokens/s){floors}; device "
+          f"busy share: decode {out['decode_device_busy_share']}, prefill "
+          f"{out['prefill_device_busy_share']}; prefill device events:")
+    for name, ms, calls in rows_p:
+        print(f"[profile] {arch} prefill {ms:9.3f} ms  {calls:5d} x  {name}")
+    del model, tok, cache, first_token, decode_rest
+    torch.cuda.empty_cache()
+
+    # full width, float32, few layers: the card against the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=cpu_layers,
+                               compute_dtype="float32")
+    model2 = T.init(cfg2, torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+    if cfg.embeds_input:
+        b2 = embeds_batch(torch, cfg2, 2, 64, gen, torch.float32)
+    else:
+        b2 = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen,
+                           device="cuda")
+    patch, routes, _ = recorded_routes()
+    with patch:
+        out["card_vs_cpu_max_abs"] = card_vs_cpu(
+            torch, model2, b2, 8, f"{arch} {cpu_layers} layers")
+    if moe:
+        out["card_vs_cpu_route_pairs"] = same_routes(
+            routes, f"{arch} {cpu_layers} layers serving")
+        print(f"[p21] {arch} {cpu_layers} layers float32: the routing of "
+              f"{len(routes) // 2} calls ({out['card_vs_cpu_route_pairs']} "
+              f"(token, k) pairs) identical on the card and the CPU")
+    del model2, routes
+    torch.cuda.empty_cache()
+    return cfg, launches, out
 
 
-def phase19_training(torch, arch):
-    """Phase 19b: ``arch`` at full width and depth through
-    ``steps.make_train_step`` (bf16 compute, float32 master weights,
-    remat) on seeded embeddings, labels, a mask and, under M-RoPE, three
-    distinct position streams, 8 x 2048.  Checks the launches of one step
-    (counts reset just before, read just after), the loss finite, a
-    ``grad_accum=2`` step, and at 2 layers, full width, float32, B 2, S
-    256 the card's loss and gradients against the CPU's.  Times the step,
-    its peak memory, model FLOPs and busy share."""
+def bf16_rerun(torch, cfg, batch, label):
+    """Two runs of a step's loss and gradients (``steps.value_and_grad``)
+    on ``batch`` with ``cfg`` (bf16 compute, float32 masters) from seeded
+    weights: they must be bit-identical."""
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(1),
+                   device="cuda", trainable=True)
+    runs = [steps.value_and_grad(model, batch) for _ in range(2)]
+    same = (bool(torch.equal(runs[0][0], runs[1][0])) and all(
+        bool(torch.equal(x, y)) for x, y in zip(runs[0][2], runs[1][2])))
+    B, S = batch["labels"].shape
+    print(f"[train] {label}: {cfg.n_layers} layers, {cfg.compute_dtype}, "
+          f"{B} x {S}: two runs of a step's loss and gradients "
+          f"bit-identical {same}")
+    check(same, f"{label}: two runs of a bf16 step differ")
+    del model, runs
+    torch.cuda.empty_cache()
+    return same
+
+
+def phase19_training(torch, arch, n_layers=None, grad_accum=1, n_steps=1,
+                     cpu_layers=P19_CPU_LAYERS):
+    """Phases 19b and 21b: ``arch`` at full width (and depth, unless
+    ``n_layers``) through ``steps.make_train_step`` (bf16 compute, float32
+    master weights, remat, ``grad_accum`` microbatches) on 8 x 2048:
+    seeded embeddings, labels, a mask and, under M-RoPE, three distinct
+    position streams for an embeds-input arch; SyntheticLM batches (one a
+    step, ``n_steps``) otherwise.  Checks the launches of the first step
+    (counts reset just before, read just after), every loss finite, the
+    peak; for an embeds-input arch a ``grad_accum=2`` step; at
+    ``cpu_layers``, full width, float32, B 2, S 256 the card's loss and
+    gradients against the CPU's (for an MoE arch with identical routing);
+    for an MoE arch two bf16 runs of a step at 1 layer, 2 x 2048,
+    bit-identical.  Times the step, its peak memory, model FLOPs and busy
+    share."""
     import copy
     from repro_torch import configs
     from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.dp_recurrence import dp_recurrence
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -3221,22 +3493,33 @@ def phase19_training(torch, arch):
     fns = (flash_attention, decode_attention, flash_attention_bwd,
            linear_recurrence, dp_recurrence)
     cfg = configs.get(arch)
-    tc = TrainConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    moe = cfg.family == "moe"
+    tc = TrainConfig(warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_STEPS,
+                     grad_accum=grad_accum)
     model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
                    device="cuda", trainable=True)
     params = dict(model.named_parameters())
     box = {"opt": adamw_init(params)}
     gen = torch.Generator(device="cuda").manual_seed(191)
     B, S = P19_BATCH, P19_PROMPT
-    batch = embeds_batch(torch, cfg, B, S, gen, torch.bfloat16)
-    batch["labels"] = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                                    device="cuda")
-    batch["mask"] = (torch.rand((B, S), generator=gen, device="cuda")
-                     > 0.1).float()
+    if cfg.embeds_input:
+        batch = embeds_batch(torch, cfg, B, S, gen, torch.bfloat16)
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=gen, device="cuda")
+        batch["mask"] = (torch.rand((B, S), generator=gen, device="cuda")
+                         > 0.1).float()
+        batches = [batch] * n_steps
+    else:
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
+                           global_batch=B, seed=0, device="cuda")
+        batches = [pipe.batch(i) for i in range(n_steps)]
+    batch = batches[0]
     step_fn = steps.make_train_step(cfg, tc)
 
-    def one_step(fn=step_fn):
-        _, box["opt"], box["m"] = fn(model, box["opt"], batch)
+    def one_step(fn=step_fn, b=batch):
+        _, box["opt"], box["m"] = fn(model, box["opt"], b)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3244,74 +3527,90 @@ def phase19_training(torch, arch):
     one_step()
     torch.cuda.synchronize()
     launches = counts(fns)
-    peak = torch.cuda.max_memory_allocated()
     L_ = cfg.n_layers
-    want = {"flash_attention": 2 * L_, "flash_attention_bwd": L_,
+    want = {"flash_attention": 2 * L_ * grad_accum,
+            "flash_attention_bwd": L_ * grad_accum,
             "decode_attention": 0, "linear_recurrence": 0,
             "dp_recurrence": 0}
-    loss = float(box["m"]["loss"])
-    print(f"[p19] {arch} train step on {B} x {S} embeddings"
-          f"{' with 3 M-RoPE streams' if 'positions' in batch else ''}: "
-          f"loss {loss:.4f}, grad norm {float(box['m']['grad_norm']):.4f}; "
-          f"launches {launches}, expected {want} (forward + remat's "
-          f"recompute, one backward a layer); peak {peak / 1e9:.2f} GB "
+    losses = [float(box["m"]["loss"])]
+    for b in batches[1:]:
+        one_step(b=b)
+        losses.append(float(box["m"]["loss"]))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[p19] {arch} train, {L_} layers, {B} x {S} "
+          f"{'embeddings' if cfg.embeds_input else 'tokens'}"
+          f"{' with 3 M-RoPE streams' if 'positions' in batch else ''} in "
+          f"{grad_accum} microbatch(es): losses "
+          f"{[round(x, 4) for x in losses]}, grad norm "
+          f"{float(box['m']['grad_norm']):.4f}; first step's launches "
+          f"{launches}, expected {want} (forward + remat's recompute, one "
+          f"backward a layer, each microbatch); peak {peak / 1e9:.2f} GB "
           f"(need <= {P19_PEAK_LIMIT / 1e9:.0f})")
     check(launches == want, f"{arch}: train launches {launches} != {want}")
-    check(np.isfinite(loss), f"{arch}: the loss is not finite")
-    check(peak <= P19_PEAK_LIMIT, f"{arch}: the step's peak {peak} passes "
-                                  f"{P19_PEAK_LIMIT}: halve its batch")
-    accum_fn = steps.make_train_step(
-        cfg, dataclasses.replace(tc, grad_accum=2))
-    zero_counts(fns)
-    one_step(accum_fn)
-    torch.cuda.synchronize()
-    acc_launches = counts(fns)
-    acc_loss = float(box["m"]["loss"])
-    print(f"[p19] {arch} grad_accum=2 step (microbatches of {B // 2} rows"
-          f"{', positions cut along their batch axis' if 'positions' in batch else ''}"
-          f"): loss {acc_loss:.4f}; launches {acc_launches}")
-    check(np.isfinite(acc_loss), f"{arch}: grad_accum=2 loss not finite")
-    check(acc_launches["flash_attention_bwd"] == 2 * L_,
-          f"{arch}: grad_accum=2 backward launches {acc_launches}")
+    check(all(np.isfinite(losses)), f"{arch}: a loss is not finite")
+    check(peak <= P19_PEAK_LIMIT, f"{arch}: the train peak {peak} passes "
+                                  f"{P19_PEAK_LIMIT}: raise grad_accum")
+    acc_launches = None
+    if cfg.embeds_input:
+        accum_fn = steps.make_train_step(
+            cfg, dataclasses.replace(tc, grad_accum=2))
+        zero_counts(fns)
+        one_step(accum_fn)
+        torch.cuda.synchronize()
+        acc_launches = counts(fns)
+        acc_loss = float(box["m"]["loss"])
+        print(f"[p19] {arch} grad_accum=2 step (microbatches of {B // 2} "
+              f"rows{', positions cut along their batch axis' if 'positions' in batch else ''}"
+              f"): loss {acc_loss:.4f}; launches {acc_launches}")
+        check(np.isfinite(acc_loss), f"{arch}: grad_accum=2 loss not finite")
+        check(acc_launches["flash_attention_bwd"] == 2 * L_,
+              f"{arch}: grad_accum=2 backward launches {acc_launches}")
 
     # timing: the step, its model FLOPs, one profiled step
     step_ms = host_ms(torch, one_step)
     tokens = B * S
     n_params = sum(p.numel() for p in params.values())
-    pairs = S * (S + 1) // 2
-    attn_flops = 12 * cfg.head_dim * pairs * B * cfg.n_heads * L_
-    flops = 6 * n_params * tokens + attn_flops
+    flops, _ = train_model_flops(cfg, B, S)
     timing = {"train_step_ms": step_ms,
               "tokens_per_s": tokens / (step_ms / 1e3),
               "peak_device_bytes": peak, "params": n_params,
-              "model_flops_per_step": flops,
+              "active_params": cfg.active_param_count(), "losses": losses,
+              "grad_accum": grad_accum, "model_flops_per_step": flops,
               "bf16_tensor_peak_share": flops / (step_ms / 1e3)
               / BF16_TENSOR_OPS}
-    wall, dev_ms, rows = profile_window(torch, one_step, top=6)
+    wall, dev_ms, rows = profile_window(torch, one_step, top=8)
     timing["step_device_busy_share"] = None if dev_ms is None \
         else dev_ms / wall
     print(f"[p19] {arch} train step {step_ms:.2f} ms, "
           f"{timing['tokens_per_s']:.0f} tokens/s, "
-          f"{timing['bf16_tensor_peak_share']:.2%} of the bf16 tensor peak; "
-          f"profiled step wall {wall:.2f} ms, device busy {dev_ms} ms; "
-          f"device events:")
+          f"{timing['bf16_tensor_peak_share']:.2%} of the bf16 tensor peak "
+          f"(N = {cfg.active_param_count() / 1e9:.3f} B active of "
+          f"{n_params / 1e9:.3f} B); profiled step wall {wall:.2f} ms, "
+          f"device busy {dev_ms} ms; device events:")
     for name, ms, calls in rows:
         print(f"[profile] {arch} train {ms:9.3f} ms  {calls:5d} x  {name}")
-    del model, params, box, batch
+    del model, params, box, batch, batches
     torch.cuda.empty_cache()
 
-    # 2 layers at full width, float32: the card against the CPU
-    cfg2 = dataclasses.replace(cfg, n_layers=P19_CPU_LAYERS,
+    # full width, float32, few layers: the card against the CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=cpu_layers,
                                compute_dtype="float32")
     cpu = T.init(cfg2, torch.Generator().manual_seed(0), device="cpu",
                  trainable=True)
     gpu = copy.deepcopy(cpu).to("cuda")
-    b2 = embeds_batch(torch, cfg2, 2, 256, gen, torch.float32)
+    if cfg.embeds_input:
+        b2 = embeds_batch(torch, cfg2, 2, 256, gen, torch.float32)
+    else:
+        b2 = {"tokens": torch.randint(0, cfg.vocab_size, (2, 256),
+                                      generator=gen, device="cuda")}
     b2["labels"] = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen,
                                  device="cuda")
     b2["mask"] = torch.ones((2, 256), device="cuda")
-    got = steps.value_and_grad(gpu, b2)
-    want_ = steps.value_and_grad(cpu, {k: v.cpu() for k, v in b2.items()})
+    patch, routes, _ = recorded_routes()
+    with patch:
+        got = steps.value_and_grad(gpu, b2)
+        want_ = steps.value_and_grad(cpu, {k: v.cpu() for k, v in b2.items()})
     d_loss = abs(float(got[0]) - float(want_[0])) / abs(float(want_[0]))
     worst = 0.0
     for (name, _), gg, gc in zip(cpu.named_parameters(), got[2], want_[2]):
@@ -3321,12 +3620,27 @@ def phase19_training(torch, arch):
                                   / (1e-6 + 1e-4 * gc.abs())).max()))
         check(excess <= 0, f"{arch}: card vs CPU grad {name} beyond atol "
                            f"1e-6 + rtol 1e-4")
-    print(f"[p19] {arch} {P19_CPU_LAYERS} layers float32, B 2, S 256, card "
+    print(f"[p19] {arch} {cpu_layers} layers float32, B 2, S 256, card "
           f"vs CPU: loss {float(got[0]):.7f} / {float(want_[0]):.7f} "
           f"(relative {d_loss:.3e}, need <= 1e-6); gradients at worst "
           f"{worst:.3f} of atol 1e-6 + rtol 1e-4")
     check(d_loss <= 1e-6, f"{arch}: card vs CPU loss differs by {d_loss}")
     timing.update(card_vs_cpu_loss_rel=d_loss, card_vs_cpu_grad_worst=worst)
+    if moe:
+        timing["card_vs_cpu_route_pairs"] = same_routes(
+            routes, f"{arch} {cpu_layers} layer training")
+        print(f"[p21] {arch} training, {cpu_layers} layer float32: the "
+              f"routing of {len(routes) // 2} calls (forward and remat's "
+              f"recompute; {timing['card_vs_cpu_route_pairs']} (token, k) "
+              f"pairs) identical on the card and the CPU")
+    del cpu, gpu, got, want_, routes
+    if moe:
+        # determinism: dispatch and combine backwards are gathers
+        cfg1 = dataclasses.replace(cfg, n_layers=1)
+        b1 = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
+                         global_batch=2, seed=1, device="cuda").batch(0)
+        timing["bf16_step_bit_identical"] = bf16_rerun(torch, cfg1, b1, arch)
+    torch.cuda.empty_cache()
     return launches, acc_launches, timing
 
 
@@ -3395,10 +3709,7 @@ def embeds_phase(torch, smi):
     t19 = time.perf_counter()
     by_path, ktimes = {}, {}
     for arch, key in P19_ARCHS:
-        model, serve_l, serve_t = phase19_serving(torch, arch)
-        cfg = model.cfg
-        del model
-        torch.cuda.empty_cache()
+        cfg, serve_l, serve_t = phase19_serving(torch, arch)
         train_l, accum_l, train_t = phase19_training(torch, arch)
         ktimes[key] = phase19_kernels(torch, cfg)
         by_path[key] = {"serving": serve_l, "training": train_l,
@@ -3406,13 +3717,33 @@ def embeds_phase(torch, smi):
         print(f"[timing] {arch} " + json.dumps(
             {"serving": serve_t, "training": train_t, "card": smi}))
     for arch, n_layers in P19_DEPTH_CUT:
-        model, serve_l, serve_t = phase19_serving(torch, arch, n_layers)
-        del model
-        torch.cuda.empty_cache()
+        _, serve_l, serve_t = phase19_serving(torch, arch, n_layers,
+                                              detail=False)
         by_path[arch] = {"serving": serve_l}
         print(f"[timing] {arch} at {n_layers} layers " + json.dumps(
             {"serving": serve_t, "card": smi}))
     print(f"[p19] phase 19 took {time.perf_counter() - t19:.1f} s")
+    return by_path, ktimes
+
+
+def moe_phase(torch, smi):
+    """Phase 21: moonshot-v1-16b-a3b (full depth) and phi3.5-moe-42b-a6.6b
+    (24 of 32 layers) serving at full width, both training at full width
+    and 2 layers, and their attention kernels' times.  Returns the
+    launches by path and the kernel times by model."""
+    t21 = time.perf_counter()
+    by_path, ktimes = {}, {}
+    for arch, key, serve_layers, accum, cpu_layers in P21_ARCHS:
+        cfg, serve_l, serve_t = phase19_serving(torch, arch, serve_layers,
+                                                cpu_layers=cpu_layers)
+        train_l, _, train_t = phase19_training(
+            torch, arch, P21_TRAIN_LAYERS, grad_accum=accum,
+            n_steps=P21_STEPS, cpu_layers=1)
+        ktimes[key] = phase19_kernels(torch, cfg)
+        by_path[key] = {"serving": serve_l, "training": train_l}
+        print(f"[timing] {arch} " + json.dumps(
+            {"serving": serve_t, "training": train_t, "card": smi}))
+    print(f"[p21] phase 21 took {time.perf_counter() - t21:.1f} s")
     return by_path, ktimes
 
 
@@ -3518,11 +3849,9 @@ def rg_train_timing(torch, model, box, step_fn, batch, smi):
     step_ms = host_ms(torch, one_step)
     tokens = P20_BATCH * P20_SEQ
     n_params = sum(p.numel() for p in model.parameters())
-    n_att = sum(k == "local_attn" for k in model.kinds)
-    w = min(cfg.window or P20_SEQ, P20_SEQ)
-    pairs = sum(min(i + 1, w) for i in range(P20_SEQ))
-    attn_flops = 12 * cfg.head_dim * pairs * P20_BATCH * cfg.n_heads * n_att
-    flops = 6 * n_params * tokens + attn_flops
+    check(n_params == cfg.active_param_count(),
+          "recurrentgemma-2b: parameter count")
+    flops, _ = train_model_flops(cfg, P20_BATCH, P20_SEQ)
     timing = {"train_step_ms": step_ms,
               "tokens_per_s": tokens / (step_ms / 1e3), "params": n_params,
               "model_flops_per_step": flops,
@@ -3599,20 +3928,10 @@ def rg_card_vs_cpu(torch):
           "phase 20: card vs CPU losses differ beyond rtol 1e-5")
     del cpu, gpu
     # 20c: determinism in bf16 at the microbatch shape
-    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(1),
-                   device="cuda", trainable=True)
     b = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=P20_SEQ,
                     global_batch=P20_BATCH // P20_ACCUM, seed=1,
                     device="cuda").batch(0)
-    runs = [steps.value_and_grad(model, b) for _ in range(2)]
-    same = (bool(torch.equal(runs[0][0], runs[1][0])) and all(
-        bool(torch.equal(x, y)) for x, y in zip(runs[0][2], runs[1][2])))
-    print(f"[p20] {P20_CPU_LAYERS} layers, bf16, {P20_BATCH // P20_ACCUM} x "
-          f"{P20_SEQ}: two runs of a step's loss and gradients bit-identical "
-          f"{same}")
-    check(same, "phase 20: two runs of a bf16 step differ")
-    del model, runs
-    torch.cuda.empty_cache()
+    same = bf16_rerun(torch, cfg, b, "phase 20")
     return {"card_vs_cpu_grad_worst_rel": worst,
             "card_vs_cpu_losses": losses, "bf16_step_bit_identical": same}
 
@@ -4039,6 +4358,10 @@ def main() -> int:
     # -- 20. recurrentgemma-2b training -----------------------------------
     p20_launches, p20_times = rg_training_phase(torch, smi)
     mark("20")
+
+    # -- 21. the MoE archs ------------------------------------------------
+    p21_launches, p21_times = moe_phase(torch, smi)
+    mark("21")
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),
@@ -4076,14 +4399,14 @@ def main() -> int:
         "library_ms": t["library_ms"],
         "launches_by_path": {
             "training": train_launches["flash_attention_bwd"]}})
-    # phase 19: each model's launches (serving and one train step) and the
-    # three attention kernels' times at its shape
+    # phases 19 and 21: each model's launches (serving and one train step)
+    # and the three attention kernels' times at its shape
     for entry in (kernels[1], kernels[2], kernels[4]):
         name = entry["name"]
-        for key, paths in p19_launches.items():
+        for key, paths in {**p19_launches, **p21_launches}.items():
             entry["launches_by_path"][key.replace("-", "_")] = sum(
                 launches.get(name, 0) for launches in paths.values())
-        for key, times in p19_times.items():
+        for key, times in {**p19_times, **p21_times}.items():
             entry[f"{key}_shape"] = {
                 k: times[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}

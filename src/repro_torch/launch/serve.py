@@ -11,7 +11,8 @@ it refuses the ``embeds_input`` archs (musicgen-medium, qwen2-vl-2b), as
 decode steps with ``embeds=``.
 
 Run (any token-input arch: recurrentgemma-2b, llama3.2-1b, smollm-135m,
-yi-34b, deepseek-coder-33b):
+yi-34b, deepseek-coder-33b, and the MoE archs moonshot-v1-16b-a3b and
+phi3.5-moe-42b-a6.6b):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke --device cpu
 """
 from __future__ import annotations

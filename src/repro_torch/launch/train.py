@@ -21,8 +21,10 @@ attention layer runs the flash forward (with its log-sum-exp) and the
 hand-written flash backward.  ``repro``'s ``mesh`` and ``rules`` (XLA
 sharding) have no counterpart here.
 
-Run:
+Run (any arch of ``configs.ARCHS``: the dense, embeds-input, hybrid
+RG-LRU and MoE ones):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
 """
 from __future__ import annotations
 

@@ -7,8 +7,9 @@ the layers in execution order instead: layer ``g * P + pidx`` is
 ``groups[pidx][g]`` (P = the pattern's period), then the ``n_tail`` tail
 layers, whose kinds are the pattern's first ones.
 
-Block kinds ``attn``, ``local_attn`` and ``rglru`` are ported; ``moe``,
-``mlstm`` and ``slstm`` raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+Block kinds ``attn``, ``local_attn``, ``rglru`` and ``moe`` (attention
+and a top-k MoE MLP, ``models/moe.py``) are ported; ``mlstm`` and ``slstm``
+raise ``NotImplementedError`` (ROADMAP.md, queue 1).
 A forward takes tokens, looked up in the embedding table, or precomputed
 embeddings (``embeds=``, the stubbed EnCodec frontend of musicgen-medium
 and vision tower of qwen2-vl-2b), and optional positions: (B, S), or
@@ -37,6 +38,7 @@ from torch import nn
 
 from ..device import resolve_device
 from . import layers as L
+from . import moe as M
 from . import rglru as R
 
 _INIT_SCALE = 0.02
@@ -46,6 +48,7 @@ BLOCKS = {
     "attn": (L.attn_layer, lambda cfg: 0),
     "local_attn": (L.attn_layer, lambda cfg: cfg.window),
     "rglru": (R.rglru_layer, lambda cfg: 0),
+    "moe": (M.moe_layer, lambda cfg: 0),
 }
 
 
@@ -116,8 +119,8 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_len: int):
         """Prefill/decode cache: one entry per layer and the next
-        position ``t``.  Windowed layers hold ``min(max_len, window)``
-        slots."""
+        position ``t``.  Attention and MoE layers hold ``max_len`` slots,
+        windowed layers ``min(max_len, window)``."""
         cfg, dev = self.cfg, self.device
         caches = []
         for kind in self.kinds:
@@ -276,7 +279,15 @@ def _init_layer(cfg, kind, gen, dev):
         p = {"ln1": _norm(d, dev), "attn": {
             "wq": _normal(gen, (d, qd), dev), "wk": _normal(gen, (d, kvd), dev),
             "wv": _normal(gen, (d, kvd), dev), "wo": _normal(gen, (qd, d), dev)}}
-    if cfg.d_ff:
+    if kind == "moe":
+        # the experts take the place of the MLP (d_ff is their width)
+        e, f = cfg.n_experts, cfg.d_ff
+        p["ln2"] = _norm(d, dev)
+        p["moe"] = {"router": _normal(gen, (d, e), dev),
+                    "gate": _normal(gen, (e, d, f), dev),
+                    "up": _normal(gen, (e, d, f), dev),
+                    "down": _normal(gen, (e, f, d), dev)}
+    elif cfg.d_ff:
         p["ln2"] = _norm(d, dev)
         p["mlp"] = _init_mlp(cfg, gen, dev)
     return p

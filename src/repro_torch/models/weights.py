@@ -4,9 +4,11 @@ JAX package's parameters across.
 The dtype rule.  ``repro`` keeps every parameter in ``param_dtype``
 (float32) and casts each matrix to the compute dtype (bf16) where it is
 used (``repro/models/layers.py:92,103,153-155,219,239-246``,
-``repro/models/rglru.py:100-109``).  The port stores those matrices - every
-parameter of two or more dimensions: the embedding table, the attention,
-MLP, RG-LRU in/out projections and the conv kernel - already cast, once.
+``repro/models/rglru.py:100-109``, ``repro/models/moe.py:59,79-82``).  The
+port stores those matrices - every parameter of two or more dimensions:
+the embedding table, the attention, MLP, RG-LRU in/out projections, the
+conv kernel, the MoE router (d, E) and the experts' (E, d, f) and (E, f,
+d) weights - already cast, once.
 Casting once gives the values that casting at each use gives, and a decode
 step then reads 5.3 GB of bf16 instead of 10.7 GB of float32 for
 recurrentgemma-2b.  The vectors, which ``repro`` reads in float32 (norm
@@ -15,6 +17,10 @@ recurrentgemma-2b.  The vectors, which ``repro`` reads in float32 (norm
 change them.  The rule is for serving only: a trainable model keeps
 every parameter in ``param_dtype`` (``from_jax_params(...,
 trainable=True)``), since AdamW on bf16 master weights is another result.
+
+``_port_tree`` maps ``repro``'s layers by name whatever their block, so
+an MoE layer's ``moe`` subtree (``router``, ``gate``, ``up``, ``down``)
+comes across as it is.
 
 Training state.  :func:`named` flattens ``repro``'s grouped pytree (its
 params, or the mu / nu of its ``AdamWState``) into the port's parameter

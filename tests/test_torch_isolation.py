@@ -60,7 +60,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.runtime", "repro_torch.core.tonks",
             "repro_torch.fault.injection", "repro_torch.launch.train",
             "repro_torch.checkpoint.manager", "repro_torch.optim.adamw",
-            "repro_torch.data.pipeline"} <= names
+            "repro_torch.data.pipeline", "repro_torch.models.moe",
+            "repro_torch.analytics"} <= names
 
 
 def test_default_device_raises_without_a_gpu():

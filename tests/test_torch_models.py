@@ -35,12 +35,15 @@ from repro_torch.models import weights as TW
 F32_TOL = 1e-4
 BF16_TOL = 5e-2
 ARCHS = ["recurrentgemma-2b", "llama3.2-1b", "smollm-135m", "yi-34b",
-         "deepseek-coder-33b", "musicgen-medium", "qwen2-vl-2b"]
+         "deepseek-coder-33b", "musicgen-medium", "qwen2-vl-2b",
+         "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"]
+MOE_ARCHS = ["moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"]
 
 
-def _cfg(arch, dtype="float32"):
-    cfg = dataclasses.replace(JC.smoke(arch), compute_dtype=dtype)
-    return cfg, dataclasses.replace(TC.smoke(arch), compute_dtype=dtype)
+def _cfg(arch, dtype="float32", **over):
+    cfg = dataclasses.replace(JC.smoke(arch), compute_dtype=dtype, **over)
+    return cfg, dataclasses.replace(TC.smoke(arch), compute_dtype=dtype,
+                                    **over)
 
 
 @functools.cache
@@ -232,21 +235,19 @@ def test_full_forward_matches_jax(arch, dtype, tol):
     _close(got, want, tol)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_prefill_decode_matches_full_forward(arch):
-    """Prefill + decode reproduces the full-sequence forward (as
-    tests/test_models.py checks for repro), and the decode logits match
-    JAX's decode step."""
-    cfg, tcfg = _cfg(arch)
+def _prefill_decode(cfg, tcfg, B, S, n_dec, full_tol):
+    """The port's prefill + decode against its full forward (within
+    ``full_tol``, unless None) and against ``repro``'s prefill_step /
+    decode_step (within F32_TOL)."""
     params_np = _jax_params(cfg)
     model = TW.from_jax_params(tcfg, params_np, device="cpu")
-    B, S, n_dec = 2, 24, 3
     toks = _tokens(cfg, B, S + n_dec)
     full, _ = model(torch.as_tensor(toks))
     cache = model.init_cache(B, S + n_dec)
     last, cache = model.prefill_step(torch.as_tensor(toks[:, :S]), cache)
     assert last.shape == (B, 1, cfg.vocab_size)
-    _close(last[:, 0], full[:, S - 1], F32_TOL)
+    if full_tol is not None:
+        _close(last[:, 0], full[:, S - 1], F32_TOL)
     jcache = JT.init_cache(cfg, B, S + n_dec)
     j_decode = _jit(JT.decode_step, cfg)
     jlast, jcache = _jit(JT.prefill_step, cfg)(
@@ -258,9 +259,38 @@ def test_prefill_decode_matches_full_forward(arch):
         jdec, jcache = j_decode(params_np, jnp.asarray(toks[:, t:t + 1],
                                                        jnp.int32),
                                 cache=jcache)
-        _close(dec[:, 0], full[:, t], 2e-3)   # test_models.py's tolerance
+        if full_tol is not None:
+            _close(dec[:, 0], full[:, t], full_tol)
         _close(dec, jdec, F32_TOL)
     assert cache["t"] == S + n_dec
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_decode_matches_full_forward(arch):
+    """Prefill + decode reproduces the full-sequence forward (as
+    tests/test_models.py checks for repro), and the decode logits match
+    JAX's decode step.  MoE archs run at ``capacity_factor =
+    n_experts``: capacity is then Tg * K, so no pair drops, and the full
+    forward's grouping of the tokens (which decides drops) cannot change
+    what a token gets."""
+    over = {}
+    if arch in MOE_ARCHS:
+        over["capacity_factor"] = float(TC.smoke(arch).n_experts)
+    cfg, tcfg = _cfg(arch, **over)
+    # 2e-3: test_models.py's tolerance
+    _prefill_decode(cfg, tcfg, 2, 24, 3, 2e-3)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_prefill_decode_matches_repro_at_published_capacity(arch):
+    """At the published capacity factor (1.25) pairs may drop, and a
+    prefill groups its tokens otherwise than a full forward: prefill and
+    decode are held to ``repro``'s prefill_step / decode_step only.  The
+    prefill of 2 x 40 tokens is one group of 80 (capacity 25 for
+    moonshot's 8 experts, 50 for phi3.5's 4)."""
+    cfg, tcfg = _cfg(arch)
+    assert cfg.capacity_factor == 1.25
+    _prefill_decode(cfg, tcfg, 2, 40, 3, None)
 
 
 def test_init_draws_the_reference_shapes():
