@@ -364,6 +364,35 @@ failure:
    share of the bf16 peak with N = ``cfg.active_param_count()``.  (c)
    The attention kernels at each model's shape, as phase 19c.  Prints the
    phase's seconds.
+22. xlstm-1.3b (48 layers: 42 mLSTM and 6 sLSTM, xLSTM[7:1]; d_model
+   2048, 4 heads of 1024, chunk 256, vocab 50,304), bf16, seeded random
+   weights, plain PyTorch (``models/xlstm.py``: no kernel of the port on
+   the path).  (a) Serving at full width and depth, 8 x 2048 token
+   prompts and 31 greedy decode steps, every kernel's count reset just
+   before and read just after.  Checks: no kernel launched, every logit
+   finite, the tokens, the peak at most 75 GB; prints how far a prefill
+   of 2016 tokens and 32 teacher-forced decode steps land from a full
+   forward over 2048 (not held: the random-weight model amplifies
+   roundings layer by layer).  Times prefill and decode a step (medians
+   of 5 after a warm-up; each decode run from the same prefill's
+   states), tokens/s, and under torch.profiler (CUDA activity only) one
+   prefill's and one request's decode busy share and device events, and
+   the six sLSTM scans alone for their share of the prefill's device
+   time; prints the floors (the mLSTM's float32 products at the float32
+   peak, the bf16 products, the sLSTM's float32 ``w_rec`` read every
+   step; a decode step's weights and states).  (b) Training at full
+   width on one period (8 layers), 3 steps of SyntheticLM 8 x 2048 at
+   the full learning rate.  Checks: no kernel launched, every loss
+   finite and the last below the first, the peak.  Times the step
+   (median after the first), tokens/s, one profiled step's busy share,
+   and the model FLOPs as 6 N tokens over the bf16 peak and the mLSTM's
+   float32 products (``train_model_flops``' term with remat's
+   recompute) over the float32 peak.  (c) At 2 layers (mlstm, slstm),
+   full width, float32, B 2, S 512: the card's logits (rtol 1e-4 of the
+   largest), loss (1e-5) and every gradient (relative 1e-4) against the
+   CPU's; on the card a prefill of 480 tokens and 32 decode steps against
+   the full forward within LOGIT_TOL_F32; in bf16 two runs of a step
+   bit-identical.  Prints the phase's seconds by part.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -530,6 +559,15 @@ P21_NODROP_B, P21_NODROP_S = 2, 256
 # CPU at one (R, R, A) period
 P20_ARCH, P20_BATCH, P20_SEQ, P20_ACCUM = "recurrentgemma-2b", 8, 2048, 4
 P20_STEPS, P20_WARMUP, P20_CPU_LAYERS = 12, 4, 3
+# phase 22: xlstm-1.3b (42 mLSTM and 6 sLSTM layers, d_model 2048, 4 heads
+# of 1024, chunk 256, vocab 50,304) serving 8 x 2048 token prompts with 32
+# greedy tokens at full width and depth; training at full width on one
+# xLSTM[7:1] period (8 layers), 8 x 2048, 3 steps in grad_accum
+# microbatches; the card against the CPU in float32 at 2 layers (mlstm,
+# slstm), B 2 x 512
+P22_ARCH, P22_BATCH, P22_PROMPT, P22_DECODE = "xlstm-1.3b", 8, 2048, 32
+P22_TRAIN_LAYERS, P22_STEPS, P22_ACCUM = 8, 3, 1
+P22_CPU_B, P22_CPU_S = 2, 512
 # the backward's loop kernel (a thread a channel) at the microbatch shape,
 # bf16, on aligned inputs, before the chunked kernel took that shape:
 # CUDA-graph replays on an H100 80GB HBM3 at 700 W; phase 20d prints it
@@ -647,19 +685,20 @@ def graph_ms(torch, calls, reps=5):
         times.append(a.elapsed_time(b) / len(calls))
     return statistics.median(times)
 
-def profile_window(torch, fn, top=8):
-    """Run ``fn`` once under torch.profiler (CPU and CUDA activity).
-    Returns the wall ms, the ms in which some device activity ran (the
-    union of the device events' intervals; None when the profiler saw
-    none) and the ``top`` device events by summed time as (name, ms,
-    count).  Only device-side events count: a CPU operator's device time
-    repeats its kernels'."""
+def profile_window(torch, fn, top=8, cpu=True):
+    """Run ``fn`` once under torch.profiler (CPU and CUDA activity, or
+    with ``cpu=False`` CUDA activity only, for windows of hundreds of
+    thousands of operators).  Returns the wall ms, the ms in which some
+    device activity ran (the union of the device events' intervals; None
+    when the profiler saw none) and the ``top`` device events (all with
+    ``top=None``) by summed time as (name, ms, count).  Only device-side
+    events count: a CPU operator's device time repeats its kernels'."""
     import re
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1320,11 +1359,14 @@ def with_bound(r):
 
 
 def train_model_flops(cfg, B, S):
-    """Model FLOPs of one train step on B x S tokens and their attention
+    """Model FLOPs of one train step on B x S tokens and their context
     part: 6 N tokens, N = ``cfg.active_param_count()`` (every parameter
     of a dense model, top_k of n_experts experts a token in an MoE one),
     plus 12 D H a visible query-key pair in each attention layer (causal,
-    or within the window of a local one)."""
+    or within the window of a local one), plus in each mLSTM layer 3 x the
+    forward's chunkwise products as ``analytics._attn_ctx_flops`` counts
+    them (intra-chunk pairs and the state terms; float32 in the port)."""
+    from repro_torch import analytics
     period = cfg.block_pattern
     attn = 0
     for i in range(cfg.n_layers):
@@ -1334,6 +1376,9 @@ def train_model_flops(cfg, B, S):
         elif kind == "local_attn":
             w = min(cfg.window or S, S)
             pairs = sum(min(j + 1, w) for j in range(S))
+        elif kind == "mlstm":
+            attn += 3 * B * analytics._attn_ctx_flops(cfg, kind, S, S)
+            continue
         else:
             continue
         attn += 12 * cfg.head_dim * pairs * B * cfg.n_heads
@@ -4035,6 +4080,480 @@ def rg_training_phase(torch, smi):
     return launches, ktimes
 
 
+# ---------------------------------------------------------------------------
+# xlstm-1.3b
+# ---------------------------------------------------------------------------
+
+def kernel_fns():
+    """Every hand-written kernel's wrapper, for counts that must stay 0."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.dp_recurrence import dp_recurrence
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.kernels.rglru_scan import (linear_recurrence,
+                                                linear_recurrence_bwd)
+    return (flash_attention, flash_attention_bwd, decode_attention,
+            linear_recurrence, linear_recurrence_bwd, dp_recurrence)
+
+
+def xlstm_chunk(cfg, S):
+    """The chunk the chunkwise mLSTM takes at S: ``cfg.mlstm_chunk``,
+    halved until it divides S."""
+    c = min(cfg.mlstm_chunk, S)
+    while S % c:
+        c //= 2
+    return c
+
+
+def xlstm_floors(torch, model, B, S):
+    """What xlstm serving cannot beat on the card.  A prefill of B x S
+    tokens: (i) the mLSTM's float32 products as the chunkwise form issues
+    them (each chunk's q C and k^T (w v), 2 B H c D^2 each, and q k^T and
+    (a w) v, 2 B H c^2 D each) at the float32 CUDA-core peak; (ii) the
+    layers' bf16 products, 2 x their matrices' parameters a token (the
+    float32 ``w_rec`` aside), and the LM head on the B last positions, at
+    the bf16 tensor peak; (iii) each sLSTM step reading its float32
+    ``w_rec`` at the memory rate.  Layers
+    run one after another, so the prefill's floor is the sum.  A decode
+    step reads the layers' weights, the LM head and B rows of the
+    embedding table, and reads and writes every recurrent state."""
+    from repro_torch.models import transformer as T
+    cfg = model.cfg
+    kinds = T.layer_kinds(cfg)
+    n_m, n_s = kinds.count("mlstm"), kinds.count("slstm")
+    d, H = cfg.d_model, cfg.n_heads
+    D, c = 2 * d // H, xlstm_chunk(cfg, S)
+    mlstm_flops = n_m * (2 * 2 * B * H * S * D * D + 2 * 2 * B * H * S * c * D)
+    layer_params = [(name, p) for layer in model.layers
+                    for name, p in layer.named_parameters()]
+    mat = sum(p.numel() for name, p in layer_params
+              if p.dim() >= 2 and name != "w_rec")
+    linear_flops = 2 * mat * B * S + 2 * d * cfg.vocab_size * B
+    w_rec = d * 4 * d * 4
+    slstm_bytes = n_s * S * w_rec
+    fp32_peak, _ = fp32_peak_ops(torch)
+    pre = {"mlstm_fp32_ms": mlstm_flops / fp32_peak * 1e3,
+           "linear_bf16_ms": linear_flops / BF16_TENSOR_OPS * 1e3,
+           "slstm_w_rec_ms": slstm_bytes / HBM_BYTES_PER_S * 1e3}
+    weights = sum(p.numel() * p.element_size() for _, p in layer_params) \
+        + model.lm_head.numel() * model.lm_head.element_size() \
+        + B * d * model.embed.element_size()
+    state = 4 * (n_m * B * H * (D * D + D + 1) + n_s * B * 4 * d)
+    dec_bytes = weights + 2 * state
+    return {"prefill_floor_ms": sum(pre.values()), **pre,
+            "mlstm_fp32_flops": mlstm_flops,
+            "linear_bf16_flops": linear_flops, "slstm_w_rec_bytes":
+            slstm_bytes, "decode_floor_ms": dec_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_weight_bytes": weights, "decode_state_bytes": 2 * state,
+            "fp32_peak_ops": fp32_peak}
+
+
+def xlstm_decode_vs_full(torch, model, tokens, n_dec, tol, label):
+    """A prefill of ``tokens[:, :S - n_dec]`` and ``n_dec`` decode steps
+    fed the remaining tokens (teacher forcing) against one full forward
+    over all S: the prefill's last logits and each decode step's must
+    equal the full forward's at their positions within ``tol`` (with
+    ``tol`` None the difference is printed, not held).  Returns the
+    largest difference."""
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    B, S = tokens.shape
+    P = S - n_dec
+    with torch.no_grad():
+        cache = model.init_cache(B, S)
+        logits, cache = steps.make_prefill_step(cfg)(
+            model, cache, {"tokens": tokens[:, :P]})
+        got = [logits[:, -1].float()]
+        decode = steps.make_decode_step(cfg)
+        for t in range(P, S):
+            logits, _, cache = decode(model, cache,
+                                      {"tokens": tokens[:, t:t + 1]})
+            got.append(logits[:, -1].float())
+        del cache, logits
+        full, _ = model(tokens)
+        want = full[:, P - 1:].float()
+        del full
+        got = torch.stack(got, 1)
+        diff = (got - want).abs()
+        top2 = want.topk(2, dim=-1).values
+        margin = 0.0 if tol is None else tol
+        decided = (top2[..., 0] - top2[..., 1]) > margin
+        same = (got.argmax(-1) == want.argmax(-1))[decided]
+    worst = float(diff.max())
+    print(f"[p22] {label}: prefill of {P} tokens (chunk "
+          f"{xlstm_chunk(cfg, P)}) and {n_dec} teacher-forced decode steps "
+          f"against a full forward over {S} (chunk {xlstm_chunk(cfg, S)}), "
+          f"B {B}: max|d logit| {worst:.4g}, mean {float(diff.mean()):.3g} "
+          f"({'printed, not held' if tol is None else f'need max <= {tol}'});"
+          f" largest logit {float(want.abs().max()):.4g}; argmax equal at "
+          f"{int(same.sum())} of {int(decided.sum())} positions whose top-2 "
+          f"margin > {margin} ({decided.numel()} in all)")
+    if tol is not None:
+        check(worst <= tol, f"{label}: decode vs full forward {worst}")
+        check(bool(same.all()), f"{label}: decode and the full forward pick "
+                                f"different tokens")
+    return worst
+
+
+def xlstm_serve_times(torch, model, batch, n_decode):
+    """Prefill ms (time to first token; median of 5 after a warm-up) and
+    decode ms a step (median of 5 runs of ``n_decode - 1`` greedy steps,
+    after one), every decode run from the same prefill's states: an xLSTM
+    layer's decode replaces its cache's tensors and writes none in place,
+    so a shallow copy of the cache starts a run over.  Also returns the
+    two calls timed, ``first_token()``, which returns (token, cache), and
+    ``decode_rest(token, cache)``, which runs the steps, and the (token,
+    cache) the decode runs started from."""
+    from repro_torch.launch import steps
+    cfg = model.cfg
+    B, S = batch["tokens"].shape
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+
+    def first_token():
+        cache = model.init_cache(B, S + n_decode)
+        logits, cache = prefill(model, cache, batch)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+
+    def decode_rest(tok, cache):
+        cache = {"layers": [dict(c) for c in cache["layers"]],
+                 "t": cache["t"]}
+        for _ in range(n_decode - 1):
+            _, tok, cache = decode(model, cache, {"tokens": tok[:, None]})
+        return tok
+
+    prefill_ms = host_ms(torch, first_token)
+    tok, cache = first_token()
+    step_ms, last = [], None
+    for _ in range(6):                       # the first is the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode_rest(tok, cache)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3 / (n_decode - 1))
+        check(last is None or bool(torch.equal(out, last)),
+              "phase 22: decode runs from one prefill's states differ")
+        last = out
+    decode_ms = statistics.median(step_ms[1:])
+    return {"prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_tokens_per_s": B / (decode_ms / 1e3),
+            "decode_steps_ms": step_ms[1:]}, first_token, decode_rest, \
+        (tok, cache)
+
+
+def xlstm_serving(torch, smi):
+    """Phase 22a: xlstm-1.3b at full width and depth (bf16, seeded random
+    weights) through the port's prefill and greedy decode steps: 8 x 2048
+    token prompts, 31 decode steps, every kernel's count reset just
+    before and read just after (the path runs none).  Checks the counts,
+    every logit finite, the tokens and the peak; prints how far a prefill
+    of 2016 tokens plus 32 teacher-forced decode steps lands from a full
+    forward over 2048.  Times prefill and decode (medians of 5 after a
+    warm-up), profiles one prefill and one request's decode (device busy
+    share, device events), and the six sLSTM scans alone on the
+    prefill's shape, for their share of the prefill's device time;
+    prints the floors of ``xlstm_floors``."""
+    from repro_torch import configs
+    from repro_torch.models import transformer as T
+    from repro_torch.models import xlstm as X
+    fns = kernel_fns()
+    cfg = configs.get(P22_ARCH)
+    kinds = T.layer_kinds(cfg)
+    t0 = time.perf_counter()
+    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    B, S, d = P22_BATCH, P22_PROMPT, cfg.d_model
+    print(f"[p22] {cfg.name}: {cfg.n_layers} layers ({kinds.count('mlstm')}"
+          f" mlstm, {kinds.count('slstm')} slstm, period "
+          f"{cfg.block_pattern}), d_model {d}, {cfg.n_heads} heads of "
+          f"{2 * d // cfg.n_heads}, mlstm chunk {cfg.mlstm_chunk}, vocab "
+          f"{cfg.vocab_size}, tied {cfg.tie_embeddings}; {n_params / 1e9:.4f}"
+          f" B parameters, {torch.cuda.memory_allocated() / 1e9:.2f} GB on "
+          f"the card (sLSTM w_rec in float32), drawn in "
+          f"{time.perf_counter() - t0:.3f} s")
+    check(n_params == cfg.param_count(), f"{cfg.name}: parameter count")
+    check(all(p["w_rec"].dtype == torch.float32 for k, p in
+              zip(kinds, model.layers) if k == "slstm"),
+          "phase 22: the sLSTM's w_rec is not stored in float32")
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    logits, toks = greedy_run(torch, model, batch, P22_DECODE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(fns)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[p22] serving: prefill of {B} x {S} tokens and "
+          f"{P22_DECODE - 1} greedy decode steps in {wall:.2f} s; "
+          f"hand-written kernel launches {launches} (expected none); peak "
+          f"{peak / 1e9:.2f} GB (need <= {P19_PEAK_LIMIT / 1e9:.0f})")
+    check(not any(launches.values()), f"phase 22: kernels ran: {launches}")
+    check(bool(torch.isfinite(logits).all()), "phase 22: non-finite logits")
+    check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "phase 22: tokens out of the vocabulary")
+    check(peak <= P19_PEAK_LIMIT, f"phase 22: serving peak {peak}")
+    out = {"serve_wall_s": wall, "params": n_params,
+           "serve_peak_device_bytes": peak}
+    del logits, toks
+    # printed only: the random-weight model amplifies roundings layer
+    # by layer (phase 22c holds the same check at 2 layers in float32)
+    out["decode_vs_full_max_abs"] = xlstm_decode_vs_full(
+        torch, model, tokens, P22_DECODE, None,
+        f"{cfg.name} bf16, {cfg.n_layers} layers")
+
+    times, first_token, decode_rest, (tok, cache) = xlstm_serve_times(
+        torch, model, batch, P22_DECODE)
+    out.update(times)
+    wall_p, dev_p, rows_p = profile_window(torch, first_token, top=None,
+                                           cpu=False)
+    wall_d, dev_d, rows_d = profile_window(
+        torch, lambda: decode_rest(tok, cache), top=None, cpu=False)
+    del tok, cache
+    # the six sLSTM scans alone, on the prefill's shape and weights
+    pre = torch.randn((B, S, 4 * d), generator=gen, device="cuda")
+    zeros = torch.zeros((B, d), device="cuda")
+    state = (zeros, zeros, zeros, torch.full_like(zeros, -1e30))
+    slstm = [p for k, p in zip(kinds, model.layers) if k == "slstm"]
+
+    def scans():
+        for p in slstm:
+            X.slstm_scan(pre, p["w_rec"], p["bias"], state)
+
+    wall_s, dev_s, rows_s = profile_window(torch, scans, top=None, cpu=False)
+    del pre
+    floors = xlstm_floors(torch, model, B, S)
+    out.update(floors)
+    n_pre = sum(c for _, _, c in rows_p)
+    n_dec = sum(c for _, _, c in rows_d)
+    out.update(
+        prefill_profiled_wall_ms=wall_p, prefill_device_ms=dev_p,
+        prefill_device_busy_share=None if dev_p is None else dev_p / wall_p,
+        prefill_device_events=n_pre,
+        decode_profiled_wall_ms=wall_d, decode_device_ms=dev_d,
+        decode_device_busy_share=None if dev_d is None else dev_d / wall_d,
+        decode_device_events_per_step=n_dec / (P22_DECODE - 1),
+        slstm_scans_wall_ms=wall_s, slstm_scans_device_ms=dev_s,
+        slstm_share_of_prefill_device=None if not (dev_s and dev_p)
+        else dev_s / dev_p,
+        prefill_top_device_events=[(n, round(ms, 3), c)
+                                   for n, ms, c in rows_p[:10]],
+        decode_top_device_events=[(n, round(ms, 3), c)
+                                  for n, ms, c in rows_d[:6]])
+    print(f"[p22] serving timing ({smi}): prefill {out['prefill_ms']:.2f} "
+          f"ms, decode {out['decode_ms_per_step']:.3f} ms a step "
+          f"({out['decode_tokens_per_s']:.1f} tokens/s); floors: prefill "
+          f"{floors['prefill_floor_ms']:.2f} ms (the mLSTM's "
+          f"{floors['mlstm_fp32_flops'] / 1e12:.2f} TFLOP of float32 "
+          f"products at {floors['fp32_peak_ops'] / 1e12:.2f} TFLOP/s: "
+          f"{floors['mlstm_fp32_ms']:.2f} ms; the bf16 products' "
+          f"{floors['linear_bf16_flops'] / 1e12:.2f} TFLOP: "
+          f"{floors['linear_bf16_ms']:.2f} ms; the sLSTM steps' "
+          f"{floors['slstm_w_rec_bytes'] / 1e9:.1f} GB of w_rec reads: "
+          f"{floors['slstm_w_rec_ms']:.2f} ms), decode "
+          f"{floors['decode_floor_ms']:.3f} ms ("
+          f"{floors['decode_weight_bytes'] / 1e9:.2f} GB of weights, "
+          f"{floors['decode_state_bytes'] / 1e9:.2f} GB of states read "
+          f"and written)")
+    print(f"[p22] profiled prefill: wall {wall_p:.1f} ms, device busy "
+          f"{dev_p} ms (share {out['prefill_device_busy_share']}), "
+          f"{n_pre} device events; profiled decode of "
+          f"{P22_DECODE - 1} steps: wall {wall_d:.1f} ms, device busy "
+          f"{dev_d} ms (share {out['decode_device_busy_share']}), "
+          f"{out['decode_device_events_per_step']:.1f} device events a "
+          f"step; the {len(slstm)} sLSTM scans alone: wall {wall_s:.1f} "
+          f"ms, device {dev_s} ms, {out['slstm_share_of_prefill_device']} "
+          f"of the prefill's device time, "
+          f"{sum(c for _, _, c in rows_s)} device events")
+    for name, ms, calls in rows_p[:10]:
+        print(f"[profile] xlstm prefill {ms:9.3f} ms  {calls:6d} x  {name}")
+    for name, ms, calls in rows_d[:6]:
+        print(f"[profile] xlstm decode  {ms:9.3f} ms  {calls:6d} x  {name}")
+    del model, first_token, decode_rest, slstm
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_training(torch, smi):
+    """Phase 22b: one xLSTM[7:1] period (7 mLSTM and 1 sLSTM layers) at
+    full width through ``steps.make_train_step`` (bf16 compute, float32
+    masters, remat), SyntheticLM batches of 8 x 2048, P22_STEPS steps at
+    the full learning rate (warmup 1), every kernel's count reset just
+    before and read just after.  Checks: no kernel launched, every loss
+    finite, the last below the first, the peak.  Times the step (median
+    of the steps after the first, a warm-up; each ends in a loss read),
+    tokens/s, the busy share of one more step under the profiler,
+    and the model FLOPs in two parts: 6 N tokens over the bf16 tensor
+    peak, and the mLSTM's float32 products (``train_model_flops``' term,
+    forward and backward, with remat's recomputation: 4 / 3 of it) over
+    the float32 peak."""
+    from repro_torch import configs
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    fns = kernel_fns()
+    cfg = dataclasses.replace(configs.get(P22_ARCH),
+                              n_layers=P22_TRAIN_LAYERS)
+    B, S = P22_BATCH, P22_PROMPT
+    tc = TrainConfig(warmup_steps=1, total_steps=P22_STEPS + 1,
+                     grad_accum=P22_ACCUM)
+    model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda", trainable=True)
+    box = {"opt": adamw_init(dict(model.named_parameters()))}
+    pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=S,
+                       global_batch=B, seed=0, device="cuda")
+    batches = [pipe.batch(i) for i in range(P22_STEPS)]
+    step_fn = steps.make_train_step(cfg, tc)
+
+    def one_step(b=batches[0]):
+        _, box["opt"], box["m"] = step_fn(model, box["opt"], b)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    losses, walls = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        one_step(b)
+        losses.append(float(box["m"]["loss"]))
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = counts(fns)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[p22] train, {cfg.n_layers} layers {T.layer_kinds(cfg)}, "
+          f"{B} x {S} tokens, grad_accum {P22_ACCUM}: losses "
+          f"{[round(x, 4) for x in losses]} in {[round(w, 2) for w in walls]}"
+          f" s; hand-written kernel launches {launches} (expected none); "
+          f"peak {peak / 1e9:.2f} GB (need <= {P19_PEAK_LIMIT / 1e9:.0f})")
+    check(not any(launches.values()), f"phase 22: kernels ran: {launches}")
+    check(all(np.isfinite(losses)), "phase 22: a loss is not finite")
+    check(losses[-1] < losses[0], "phase 22: the loss did not fall")
+    check(peak <= P19_PEAK_LIMIT, f"phase 22: the train peak {peak}: "
+                                  f"raise grad_accum")
+    step_ms = statistics.median(walls[1:]) * 1e3
+    flops, mlstm = train_model_flops(cfg, B, S)
+    fp32_peak, _ = fp32_peak_ops(torch)
+    step_s = step_ms / 1e3
+    timing = {"train_step_ms": step_ms, "tokens_per_s": B * S / step_s,
+              "losses": losses, "peak_device_bytes": peak,
+              "params": cfg.param_count(), "grad_accum": P22_ACCUM,
+              "model_flops_per_step": flops,
+              "mlstm_model_flops_per_step": mlstm,
+              "bf16_tensor_peak_share": (flops - mlstm) / step_s
+              / BF16_TENSOR_OPS,
+              "mlstm_fp32_issued_flops": mlstm * 4 / 3,
+              "fp32_peak_share": mlstm * 4 / 3 / step_s / fp32_peak}
+    wall, dev_ms, rows = profile_window(torch, one_step, top=None, cpu=False)
+    timing.update(step_profiled_wall_ms=wall, step_device_ms=dev_ms,
+                  step_device_busy_share=None if dev_ms is None
+                  else dev_ms / wall,
+                  step_device_events=sum(c for _, _, c in rows),
+                  step_top_device_events=[(n, round(ms, 3), c)
+                                          for n, ms, c in rows[:8]])
+    print(f"[p22] train step {step_ms:.2f} ms ({smi}), "
+          f"{timing['tokens_per_s']:.0f} tokens/s; 6 N tokens "
+          f"{(flops - mlstm) / 1e12:.2f} TFLOP, "
+          f"{timing['bf16_tensor_peak_share']:.2%} of the bf16 tensor peak;"
+          f" the mLSTM's float32 products {mlstm * 4 / 3 / 1e12:.2f} TFLOP "
+          f"issued (forward, backward, remat's recompute), "
+          f"{timing['fp32_peak_share']:.2%} of the float32 peak "
+          f"({fp32_peak / 1e12:.2f} TFLOP/s); profiled step wall "
+          f"{wall:.1f} ms, device busy {dev_ms} ms, "
+          f"{timing['step_device_events']} device events; device events:")
+    for name, ms, calls in rows[:8]:
+        print(f"[profile] xlstm train {ms:9.3f} ms  {calls:6d} x  {name}")
+    del model, box, batches, step_fn, one_step
+    torch.cuda.empty_cache()
+    return timing
+
+
+def xlstm_card_vs_cpu(torch):
+    """Phase 22c: two layers (mlstm, slstm) at full width in float32, B 2
+    x 512: the card's logits (within rtol 1e-4 of their largest
+    magnitude), loss (within 1e-5) and every gradient (relative error, the
+    largest difference over the largest element, <= 1e-4) against the
+    CPU's; on the card, a prefill of 480 tokens and 32 teacher-forced
+    decode steps against the full forward within LOGIT_TOL_F32; in bf16
+    two runs of a step's loss and gradients bit-identical."""
+    import copy
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(configs.get(P22_ARCH), n_layers=2,
+                              block_pattern=("mlstm", "slstm"),
+                              compute_dtype="float32")
+    cpu = T.init(cfg, torch.Generator().manual_seed(0), device="cpu",
+                 trainable=True)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    gen = torch.Generator().manual_seed(221)
+    B, S = P22_CPU_B, P22_CPU_S
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen),
+             "mask": torch.ones((B, S))}
+    on_card = {k: v.to("cuda") for k, v in batch.items()}
+    with torch.no_grad():
+        lg = gpu(on_card["tokens"])[0].cpu()
+        lc = cpu(batch["tokens"])[0]
+    logit_rel = float((lg - lc).abs().max() / lc.abs().max())
+    del lg, lc
+    got = steps.value_and_grad(gpu, on_card)
+    want = steps.value_and_grad(cpu, batch)
+    d_loss = abs(float(got[0]) - float(want[0]))
+    worst, worst_name = 0.0, None
+    for (name, _), gg, gc in zip(cpu.named_parameters(), got[2], want[2]):
+        rel = float((gg.cpu() - gc).abs().max() / gc.abs().max())
+        if rel > worst:
+            worst, worst_name = rel, name
+        check(rel <= 1e-4, f"phase 22: card vs CPU grad {name}: relative "
+                           f"error {rel}")
+    print(f"[p22] {cfg.n_layers} layers {T.layer_kinds(cfg)} float32, B {B},"
+          f" S {S}, card vs CPU: logits max difference {logit_rel:.3e} of "
+          f"the largest (need <= 1e-4); loss {float(got[0]):.7f} / "
+          f"{float(want[0]):.7f} (difference {d_loss:.3e}, need <= 1e-5); "
+          f"gradients' worst relative error {worst:.3e} at {worst_name} "
+          f"(need <= 1e-4)")
+    check(logit_rel <= 1e-4, f"phase 22: card vs CPU logits {logit_rel}")
+    check(d_loss <= 1e-5, f"phase 22: card vs CPU loss {d_loss}")
+    del got, want
+    dec = xlstm_decode_vs_full(torch, gpu, on_card["tokens"], P22_DECODE,
+                               LOGIT_TOL_F32,
+                               f"{cfg.n_layers} layers float32 on the card")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    same = bf16_rerun(torch, dataclasses.replace(cfg,
+                                                 compute_dtype="bfloat16"),
+                      on_card, "phase 22")
+    return {"card_vs_cpu_logit_rel": logit_rel, "card_vs_cpu_loss_abs": d_loss,
+            "card_vs_cpu_grad_worst_rel": worst,
+            "decode_vs_full_f32": dec,
+            "bf16_step_bit_identical": same}
+
+
+def xlstm_phase(torch, smi):
+    """Phase 22: xlstm-1.3b serving at full width and depth, training at
+    full width on one period, and the card against the CPU."""
+    run, seconds = {"card": smi}, {}
+    for key, fn in (("serving", lambda: xlstm_serving(torch, smi)),
+                    ("training", lambda: xlstm_training(torch, smi)),
+                    ("card_vs_cpu", lambda: xlstm_card_vs_cpu(torch))):
+        t0 = time.perf_counter()
+        run[key] = fn()
+        seconds[key] = round(time.perf_counter() - t0, 1)
+    print("[timing] xlstm-1.3b " + json.dumps(run))
+    print(f"[p22] phase 22 took {sum(seconds.values()):.1f} s: "
+          f"{json.dumps(seconds)}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4362,6 +4881,10 @@ def main() -> int:
     # -- 21. the MoE archs ------------------------------------------------
     p21_launches, p21_times = moe_phase(torch, smi)
     mark("21")
+
+    # -- 22. xlstm-1.3b -----------------------------------------------------
+    xlstm_phase(torch, smi)
+    mark("22")
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),

@@ -6,10 +6,9 @@ same-family config for CPU tests.  IDs match ``repro.configs``.  The two
 ``embeds_input`` archs (musicgen-medium, qwen2-vl-2b with M-RoPE) take
 precomputed embeddings through ``Model.forward(embeds=...)``, or tokens
 through their embedding table; the two MoE archs (moonshot-v1-16b-a3b,
-phi3.5-moe-42b-a6.6b) run ``models/moe.py``'s block.  Only xlstm-1.3b of
-the JAX package's architectures is missing: its mLSTM / sLSTM blocks are
-not ported yet, and asking for it raises ``KeyError`` (``ROADMAP.md``,
-queue 1).
+phi3.5-moe-42b-a6.6b) run ``models/moe.py``'s block, and xlstm-1.3b
+``models/xlstm.py``'s mLSTM and sLSTM blocks.  Every architecture of the
+JAX package's registry is here; an unknown ID raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -27,6 +26,7 @@ _MODULES = {
     "musicgen-medium": "musicgen_medium",
     "qwen2-vl-2b": "qwen2_vl_2b",
     "recurrentgemma-2b": "recurrentgemma_2b",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 ARCHS = tuple(_MODULES)
@@ -34,9 +34,7 @@ ARCHS = tuple(_MODULES)
 
 def _mod(arch: str):
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported yet (ported: "
-                       f"{sorted(_MODULES)}); ROADMAP.md lists what the "
-                       f"others still need")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     return importlib.import_module(f".{_MODULES[arch]}", __package__)
 
 

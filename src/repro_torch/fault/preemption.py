@@ -6,12 +6,13 @@ from the constrained-preemption model with the provider's 30 s advance
 warning, and the paper's VM-reuse policy at pod granularity) and
 ``StragglerWatchdog``.  Lifetimes come from ``np.random.default_rng(seed)``
 uniforms inverted by ``engine.capped_icdf_draw``, so one seed gives the JAX
-package's lifetimes.  (Elastic re-meshing, ``plan_elastic_remesh``, is not
-ported yet: ROADMAP.md, queue 1.)
+package's lifetimes.  ``plan_elastic_remesh`` plans the survivors' mesh
+after pods are lost (host arithmetic, as in ``repro``).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -95,6 +96,38 @@ class PreemptionSource:
         age = self.pod_age(pod_id, now_hours)
         return bool(sched_policy.reuse_decision(self._dist, job_hours, age,
                                                 relaunch_overhead))
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    """Survivor topology after losing pods."""
+    surviving_pods: tuple
+    mesh_shape: tuple
+    mesh_axes: tuple
+    batch_scale: float          # global batch multiplier (survivors / total)
+    reshard: bool               # params need re-sharding across survivors
+
+
+def plan_elastic_remesh(n_pods: int, lost: Sequence[int], *,
+                        pod_shape=(16, 16),
+                        axes=("data", "model")) -> ElasticPlan:
+    """Drop lost pods from the ``pod`` axis and continue on the survivors.
+
+    Multi-pod training shards the batch over ("pod", "data") and keeps the
+    parameters replicated across pods (or FSDP within a pod), so losing a
+    pod means (a) shrinking the pod axis, (b) rescaling the global batch,
+    (c) restoring the state from the last checkpoint on the survivors.
+    With one survivor the mesh degenerates to the single-pod layout;
+    losing every pod raises ``RuntimeError`` (the job must re-queue).
+    """
+    survivors = tuple(i for i in range(n_pods) if i not in set(lost))
+    n = len(survivors)
+    if n == 0:
+        raise RuntimeError("all pods lost; job must re-queue")
+    if n == 1:
+        return ElasticPlan(survivors, pod_shape, axes, 1.0 / n_pods, False)
+    return ElasticPlan(survivors, (n,) + tuple(pod_shape),
+                       ("pod",) + tuple(axes), n / n_pods, False)
 
 
 @dataclasses.dataclass

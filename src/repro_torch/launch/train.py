@@ -22,9 +22,10 @@ hand-written flash backward.  ``repro``'s ``mesh`` and ``rules`` (XLA
 sharding) have no counterpart here.
 
 Run (any arch of ``configs.ARCHS``: the dense, embeds-input, hybrid
-RG-LRU and MoE ones):
+RG-LRU, MoE and xLSTM ones):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --smoke --device cpu
 """
 from __future__ import annotations
 

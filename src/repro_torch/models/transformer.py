@@ -7,9 +7,10 @@ the layers in execution order instead: layer ``g * P + pidx`` is
 ``groups[pidx][g]`` (P = the pattern's period), then the ``n_tail`` tail
 layers, whose kinds are the pattern's first ones.
 
-Block kinds ``attn``, ``local_attn``, ``rglru`` and ``moe`` (attention
-and a top-k MoE MLP, ``models/moe.py``) are ported; ``mlstm`` and ``slstm``
-raise ``NotImplementedError`` (ROADMAP.md, queue 1).
+Every block kind of ``repro``'s registry is ported: ``attn``,
+``local_attn``, ``rglru``, ``moe`` (attention and a top-k MoE MLP,
+``models/moe.py``), and xLSTM's ``mlstm`` and ``slstm``
+(``models/xlstm.py``); any other kind raises ``NotImplementedError``.
 A forward takes tokens, looked up in the embedding table, or precomputed
 embeddings (``embeds=``, the stubbed EnCodec frontend of musicgen-medium
 and vision tower of qwen2-vl-2b), and optional positions: (B, S), or
@@ -40,6 +41,7 @@ from ..device import resolve_device
 from . import layers as L
 from . import moe as M
 from . import rglru as R
+from . import xlstm as X
 
 _INIT_SCALE = 0.02
 
@@ -49,6 +51,8 @@ BLOCKS = {
     "local_attn": (L.attn_layer, lambda cfg: cfg.window),
     "rglru": (R.rglru_layer, lambda cfg: 0),
     "moe": (M.moe_layer, lambda cfg: 0),
+    "mlstm": (X.mlstm_layer, lambda cfg: 0),
+    "slstm": (X.slstm_layer, lambda cfg: 0),
 }
 
 
@@ -59,8 +63,8 @@ def layer_kinds(cfg) -> list[str]:
     missing = sorted(set(kinds) - set(BLOCKS))
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: block kinds {missing} are not ported yet "
-            f"(ROADMAP.md, queue 1)")
+            f"{cfg.name}: block kinds {missing} are not ported (known: "
+            f"{sorted(BLOCKS)}; ROADMAP.md)")
     return kinds
 
 
@@ -120,12 +124,16 @@ class Model(nn.Module):
     def init_cache(self, batch: int, max_len: int):
         """Prefill/decode cache: one entry per layer and the next
         position ``t``.  Attention and MoE layers hold ``max_len`` slots,
-        windowed layers ``min(max_len, window)``."""
+        windowed layers ``min(max_len, window)``; the recurrent layers
+        (RG-LRU, mLSTM, sLSTM) their states."""
         cfg, dev = self.cfg, self.device
+        recurrent = {"rglru": R.init_rglru_cache,
+                     "mlstm": X.init_mlstm_cache,
+                     "slstm": X.init_slstm_cache}
         caches = []
         for kind in self.kinds:
-            if kind == "rglru":
-                caches.append(R.init_rglru_cache(cfg, batch, device=dev))
+            if kind in recurrent:
+                caches.append(recurrent[kind](cfg, batch, device=dev))
             else:
                 size = max_len
                 if kind == "local_attn" and cfg.window:
@@ -259,8 +267,35 @@ def _norm(d, dev):
     return {"scale": torch.ones(d, device=dev)}
 
 
+def _init_xlstm_layer(cfg, kind, gen, dev):
+    """An mLSTM or sLSTM layer, with ``repro``'s gate biases: the mLSTM's
+    forget bias 3 and input bias 0 a head, the sLSTM's (z, i, f, o) bias
+    [0 (2d), 3 (d), 0 (d)]."""
+    d = cfg.d_model
+    if kind == "mlstm":
+        inner, H = 2 * d, cfg.n_heads
+        hd = inner // H
+        return {"ln": _norm(d, dev), "up_v": _normal(gen, (d, inner), dev),
+                "up_g": _normal(gen, (d, inner), dev),
+                "wq": _normal(gen, (H, hd, hd), dev),
+                "wk": _normal(gen, (H, hd, hd), dev),
+                "wv": _normal(gen, (H, hd, hd), dev),
+                "w_i": _normal(gen, (inner, H), dev),
+                "b_i": torch.zeros(H, device=dev),
+                "w_f": _normal(gen, (inner, H), dev),
+                "b_f": torch.full((H,), 3.0, device=dev),
+                "down": _normal(gen, (inner, d), dev)}
+    bias = torch.zeros(4 * d, device=dev)
+    bias[2 * d:3 * d] = 3.0
+    return {"ln": _norm(d, dev), "w_in": _normal(gen, (d, 4 * d), dev),
+            "w_rec": _normal(gen, (d, 4 * d), dev), "bias": bias,
+            "down": _normal(gen, (d, d), dev)}
+
+
 def _init_layer(cfg, kind, gen, dev):
     d = cfg.d_model
+    if kind in ("mlstm", "slstm"):
+        return _init_xlstm_layer(cfg, kind, gen, dev)
     if kind == "rglru":
         w = cfg.lru_width
         # Lambda so that a^c lands in (0.9, 0.999), as repro initialises it
@@ -297,10 +332,11 @@ def init(cfg, generator: torch.Generator, device="cuda", *,
          trainable: bool = False) -> Model:
     """Random weights of ``cfg``'s shapes, drawn as ``repro`` draws them
     (normal x 0.02 matrices, unit norms, zero gate biases, the RG-LRU's
-    Lambda ramp) in float32 from ``generator``, which must live on
-    ``device``, then stored in the dtypes of ``models/weights.py`` for
-    serving, or kept in ``param_dtype`` as trainable parameters.  The
-    values differ from JAX's: the tests carry JAX's weights across with
+    Lambda ramp, the xLSTM forget biases of 3) in float32 from
+    ``generator``, which must live on ``device``, then stored in the
+    dtypes of ``models/weights.py`` for serving, or kept in
+    ``param_dtype`` as trainable parameters.  The values differ from
+    JAX's: the tests carry JAX's weights across with
     ``weights.from_jax_params`` instead."""
     from .weights import stored   # weights imports this module for Model
     dev = resolve_device(device)

@@ -14,9 +14,18 @@ step then reads 5.3 GB of bf16 instead of 10.7 GB of float32 for
 recurrentgemma-2b.  The vectors, which ``repro`` reads in float32 (norm
 ``scale``, ``w_a``, ``b_a``, ``w_i``, ``b_i``, ``lam``: ``layers.py:44``,
 ``rglru.py:81-85``), stay in ``param_dtype``: a bf16 round trip would
-change them.  The rule is for serving only: a trainable model keeps
-every parameter in ``param_dtype`` (``from_jax_params(...,
-trainable=True)``), since AdamW on bf16 master weights is another result.
+change them.  One matrix is an exception: the sLSTM's recurrent
+``w_rec`` (d, 4d), which ``repro`` casts to float32 at use
+(``repro/models/xlstm.py:224``), stays in ``param_dtype``; rounded to
+bf16 it would change every step of the scan (0.40 GB more for
+xlstm-1.3b's six sLSTM layers).  The mLSTM's and sLSTM's other matrices
+(``up_v``, ``up_g``, ``wq``, ``wk``, ``wv``, ``w_i``, ``w_f``, ``w_in``,
+``down``) are cast at use and follow the rule; their bias vectors
+(``b_i``, ``b_f``, ``bias``) stay float32, and ``mlstm_layer`` casts
+``b_i`` and ``b_f`` at use as ``repro`` does.  The rule is for serving
+only: a trainable model keeps every parameter in ``param_dtype``
+(``from_jax_params(..., trainable=True)``), since AdamW on bf16 master
+weights is another result.
 
 ``_port_tree`` maps ``repro``'s layers by name whatever their block, so
 an MoE layer's ``moe`` subtree (``router``, ``gate``, ``up``, ``down``)
@@ -38,15 +47,20 @@ from .layers import cdt
 from .transformer import Model
 
 
-def stored(cfg, tree):
+# matrices that repro reads in float32: kept in param_dtype
+_FLOAT32_MATRICES = frozenset({"w_rec"})
+
+
+def stored(cfg, tree, name=None):
     """``tree`` (a tensor, or nested dicts and lists of them) in the port's
-    storage dtypes: matrices in the compute dtype, vectors in
-    ``param_dtype``."""
+    storage dtypes: matrices in the compute dtype, vectors and the sLSTM's
+    ``w_rec`` in ``param_dtype``.  ``name``: the leaf's key."""
     if isinstance(tree, dict):
-        return {k: stored(cfg, v) for k, v in tree.items()}
+        return {k: stored(cfg, v, k) for k, v in tree.items()}
     if isinstance(tree, list):
         return [stored(cfg, v) for v in tree]
-    dtype = cdt(cfg) if tree.ndim >= 2 else getattr(torch, cfg.param_dtype)
+    keep = tree.ndim < 2 or name in _FLOAT32_MATRICES
+    dtype = getattr(torch, cfg.param_dtype) if keep else cdt(cfg)
     return tree.to(dtype).contiguous()
 
 

@@ -1,9 +1,9 @@
 """The port's analytic counts (``repro_torch.analytics``) against
 ``repro.analytics``, and ``chip_smoke.py``'s model-FLOP helper.
 
-For each of ``repro``'s 10 archs (the port's ``ModelConfig`` built from
-``dataclasses.asdict`` of ``repro``'s, since xlstm-1.3b is not registered
-in the port), every ``SHAPES`` entry and chips in {1, 256}:
+For each of ``repro``'s 10 archs (the port's ``ModelConfig`` from its own
+registry, which ``tests/test_torch_models.py`` holds equal to
+``repro``'s), every ``SHAPES`` entry and chips in {1, 256}:
 ``forward_flops``, every field of ``cell_cost`` under both rule sets and
 ``_cache_bytes`` within rtol 1e-12 (the same float arithmetic), and
 ``roofline`` with a hardware entry holding ``repro``'s constants equal to
@@ -21,7 +21,8 @@ import pytest
 from repro import analytics as JA
 from repro import configs as JC
 from repro_torch import analytics as TA
-from repro_torch.configs.base import SHAPES, ModelConfig
+from repro_torch import configs as TC
+from repro_torch.configs.base import SHAPES
 
 ROOT = Path(__file__).resolve().parent.parent
 # a hardware entry with repro's constants, built here: the port has none
@@ -31,7 +32,7 @@ REPRO_HW = TA.Hardware(name="repro constants", peak_flops=JA.PEAK_FLOPS,
 
 
 def _port_cfg(arch):
-    return ModelConfig(**dataclasses.asdict(JC.get(arch)))
+    return TC.get(arch)
 
 
 def _close(got, want):
@@ -139,6 +140,21 @@ def test_chip_smoke_flop_helper_equals_the_old_expression(arch, B, S):
     attn = 12 * cfg.head_dim * pairs * B * cfg.n_heads * n_att
     assert cs.train_model_flops(cfg, B, S) == (6 * n_params * B * S + attn,
                                                attn)
+
+
+@pytest.mark.parametrize("B,S", [(8, 2048), (2, 40)])
+def test_chip_smoke_flop_helper_counts_the_mlstm_products(B, S):
+    """xlstm-1.3b: 6 N tokens plus, in each mLSTM layer, 3 x the forward's
+    chunkwise products of ``analytics._attn_ctx_flops`` (forward and
+    backward); the sLSTM adds nothing beyond its parameters."""
+    cs = _chip_smoke()
+    cfg = _port_cfg("xlstm-1.3b")
+    n_mlstm = TA._layer_kinds(cfg).count("mlstm")
+    assert n_mlstm == 42
+    ctx = 3 * B * n_mlstm * TA._attn_ctx_flops(cfg, "mlstm", S, S)
+    flops, got_ctx = cs.train_model_flops(cfg, B, S)
+    _close(got_ctx, ctx)
+    _close(flops, 6 * cfg.param_count() * B * S + ctx)
 
 
 @pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b",

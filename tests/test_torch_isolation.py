@@ -61,6 +61,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.fault.injection", "repro_torch.launch.train",
             "repro_torch.checkpoint.manager", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.models.moe",
+            "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
             "repro_torch.analytics"} <= names
 
 
@@ -110,6 +111,9 @@ def test_default_device_raises_without_a_gpu():
         lambda: weights.from_jax_params(cfg, {}),
         lambda: serve.serve_batch(cfg, None, [[1, 2, 3]]),
         lambda: serve.main(["--arch", "recurrentgemma-2b", "--smoke"]),
+        lambda: serve.main(["--arch", "xlstm-1.3b", "--smoke"]),
+        lambda: transformer.init(configs.smoke("xlstm-1.3b"),
+                                 torch.Generator()),
         lambda: PreemptionSource(d),
         lambda: engine.ReuseTable(d, [1.0]),
         lambda: engine.ReuseTables([d], [1.0]),
@@ -148,6 +152,7 @@ def test_default_device_raises_without_a_gpu():
         lambda: train.train(configs.smoke("smollm-135m"),
                             TrainConfig(ckpt_dir="unused"), total_steps=1),
         lambda: train.main(["--arch", "smollm-135m", "--smoke"]),
+        lambda: train.main(["--arch", "xlstm-1.3b", "--smoke"]),
         lambda: transformer.init(configs.smoke("smollm-135m"),
                                  torch.Generator(), trainable=True),
         lambda: weights.from_jax_params(cfg, {}, trainable=True),

@@ -36,7 +36,7 @@ F32_TOL = 1e-4
 BF16_TOL = 5e-2
 ARCHS = ["recurrentgemma-2b", "llama3.2-1b", "smollm-135m", "yi-34b",
          "deepseek-coder-33b", "musicgen-medium", "qwen2-vl-2b",
-         "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"]
+         "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b", "xlstm-1.3b"]
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"]
 
 
@@ -79,19 +79,26 @@ def _close(got, want, tol):
 
 
 def test_registry_has_the_ported_archs_only():
-    assert set(TC.ARCHS) == set(ARCHS)
+    """Every arch of ``repro``'s registry, xlstm-1.3b included, with
+    ``repro``'s configs; an unknown ID raises ``KeyError``."""
+    assert set(TC.ARCHS) == set(ARCHS) == set(JC.ARCHS)
     for arch in ARCHS:
         for get in ("get", "smoke"):
             assert dataclasses.asdict(getattr(TC, get)(arch)) \
                 == dataclasses.asdict(getattr(JC, get)(arch))
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        TC.get("xlstm-1.3b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        TC.get("xlstm-7b")
 
 
 def test_unported_block_kinds_raise():
+    """A block kind that no config of ``repro`` uses is refused; every
+    kind that one does use is built."""
+    used = {kind for arch in JC.ARCHS
+            for kind in JC.get(arch).block_pattern}
+    assert used <= set(TT.BLOCKS)
     cfg = dataclasses.replace(TC.smoke("llama3.2-1b"),
-                              block_pattern=("mlstm",))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                              block_pattern=("mamba",))
+    with pytest.raises(NotImplementedError, match="block kinds"):
         TT.init(cfg, torch.Generator(), device="cpu")
 
 

@@ -1,0 +1,460 @@
+"""The port's xLSTM blocks (``repro_torch.models.xlstm``), xlstm-1.3b and
+``fault.plan_elastic_remesh`` against ``repro`` on the CPU, at smoke size.
+
+Both sides get the same numpy inputs (seeded) and the same weights
+(``repro``'s init, carried across with ``weights.from_jax_params``); the
+JAX side runs in its default float32.  Tolerances, case by case:
+
+- ``mlstm_chunkwise_parallel`` against ``repro``'s, at chunks 8 / 16 / 64,
+  at S that force the chunk to halve (24 and 21 with chunk 16) and at S =
+  1: outputs and (C, n, m) within atol 1e-5 + rtol 1e-5.  Unit-normal q,
+  k, v give outputs up to ~13, where the two sum orders differ by float32
+  roundings (``repro``'s own chunkwise form differs from its step-by-step
+  oracle by 1.3e-5 on these inputs).
+- ``mlstm_recurrent`` against ``repro.kernels.ref.mlstm_chunkwise``, from
+  zeros (m = -inf) and from a given (c0, n0, m0): the same tolerance.
+- ``_slstm_cell``: atol = rtol = 1e-6 (the same float32 operations).
+- ``mlstm_layer`` and ``slstm_layer`` in train, prefill and decode modes:
+  float32 outputs and caches within ``test_torch_models.F32_TOL``; bf16
+  outputs and caches within 2 bf16 ulps of each tensor's largest element
+  (the frameworks round intermediates at different places; the mLSTM's
+  reach 0.9 ulp).
+- xlstm-1.3b-smoke: the float32 forward, prefill and decode logits within
+  ``F32_TOL`` of ``repro``'s; decode against the port's own full forward
+  at ``tests/test_models.py``'s tolerance (atol 2e-3, rtol 1e-3); the
+  bf16 forward within ``BF16_TOL``.
+- ``lm_loss`` (rtol 1e-6) and every gradient leaf (atol 1e-6 + rtol
+  1e-4) against ``jax.value_and_grad``, remat on and off; one
+  ``make_train_step`` step against ``repro``'s at
+  ``test_torch_moe.py``'s tolerances (loss and lr rtol 1e-6, AdamW's first
+  moment atol 1e-7 + rtol 1e-4, parameters within 2 x lr).
+- Storage: serving matrices in the compute dtype except the sLSTM's
+  ``w_rec``, float32 like the vectors; a trainable model all float32.
+- ``plan_elastic_remesh``: every field of ``ElasticPlan`` equal, and the
+  same ``RuntimeError`` when every pod is lost.
+"""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as JC
+from repro.configs.base import TrainConfig as JTrainConfig
+from repro.fault import preemption as JP
+from repro.kernels import ref as JREF
+from repro.launch import steps as JS
+from repro.models import transformer as JT
+from repro.models import xlstm as JX
+from repro.optim import adamw as JA
+from repro_torch import configs as TC
+from repro_torch import fault as TF
+from repro_torch.configs.base import TrainConfig
+from repro_torch.launch import serve as TSV
+from repro_torch.launch import steps as TS
+from repro_torch.launch import train as TTR
+from repro_torch.models import transformer as TT
+from repro_torch.models import weights as TW
+from repro_torch.models import xlstm as TX
+from repro_torch.optim import adamw_init
+
+from test_torch_models import BF16_TOL, F32_TOL
+
+ARCH = "xlstm-1.3b"
+CELL_TOL = 1e-5
+BF16_LAYER_ULPS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Many small operations: one intra-op thread, so that test workers
+    sharing the cores do not oversubscribe them (restored afterwards)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfg(dtype="float32", **over):
+    return (dataclasses.replace(JC.smoke(ARCH), compute_dtype=dtype, **over),
+            dataclasses.replace(TC.smoke(ARCH), compute_dtype=dtype, **over))
+
+
+@functools.cache
+def _jax_params(cfg):
+    params, _ = JT.init(cfg, jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _np(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else
+                      jnp.asarray(x, jnp.float32))
+
+
+def _close(got, want, atol, rtol=None):
+    np.testing.assert_allclose(_np(got), _np(want), atol=atol,
+                               rtol=atol if rtol is None else rtol)
+
+
+def _within_ulps(got, want, ulps):
+    """Elementwise within ``ulps`` bf16 ulps of the tensor's largest
+    element, ``ulps * 2**-8 * max|want|``."""
+    got, want = _np(got), _np(want)
+    assert np.abs(got - want).max() <= ulps * 2.0 ** -8 * np.abs(want).max()
+
+
+def _cell_inputs(B, S, H, D, seed):
+    """q, k, v unit normal; log forget gates log-sigmoid of N(2, 1) (mostly
+    remembering); input gates N(0, 1) in log space."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, S, H, D)).astype(np.float32)
+               for _ in range(3))
+    pre_f = rng.standard_normal((B, S, H)) + 2.0
+    log_f = (-np.logaddexp(0.0, -pre_f)).astype(np.float32)
+    log_i = rng.standard_normal((B, S, H)).astype(np.float32)
+    return q, k, v, log_f, log_i
+
+
+# -- the cells -----------------------------------------------------------------
+
+@pytest.mark.parametrize("S,chunk", [(40, 8), (40, 16), (40, 64), (24, 16),
+                                     (21, 16), (1, 16)])
+def test_mlstm_chunkwise_matches_repro(S, chunk):
+    """S = 24 halves chunk 16 to 8, S = 21 (odd) to 1; chunk 64 > S = 40
+    runs one chunk of 40."""
+    xs = _cell_inputs(2, S, 2, 16, seed=S + chunk)
+    want, want_state = JX.mlstm_chunkwise_parallel(
+        *map(jnp.asarray, xs), chunk=chunk)
+    got, got_state = TX.mlstm_chunkwise_parallel(
+        *map(torch.as_tensor, xs), chunk=chunk)
+    assert got.shape == (2, S, 2, 16) and got.dtype == torch.float32
+    _close(got, want, CELL_TOL)
+    for g, w in zip(got_state, want_state):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        _close(g, w, CELL_TOL)
+
+
+def test_mlstm_chunkwise_keeps_the_input_dtype():
+    xs = _cell_inputs(1, 16, 2, 8, seed=3)
+    q, k, v = (torch.as_tensor(x).bfloat16() for x in xs[:3])
+    out, (C, n, m) = TX.mlstm_chunkwise_parallel(
+        q, k, v, *map(torch.as_tensor, xs[3:]), chunk=8)
+    assert out.dtype == torch.bfloat16
+    assert C.dtype == n.dtype == m.dtype == torch.float32
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mlstm_recurrent_matches_ref(with_state):
+    B, S, H, D = 2, 12, 2, 16
+    xs = _cell_inputs(B, S, H, D, seed=7)
+    state = {}
+    if with_state:
+        rng = np.random.default_rng(8)
+        state = {"c0": rng.standard_normal((B, H, D, D)).astype(np.float32),
+                 "n0": rng.standard_normal((B, H, D)).astype(np.float32),
+                 "m0": rng.standard_normal((B, H)).astype(np.float32)}
+    want, want_state = JREF.mlstm_chunkwise(
+        *map(jnp.asarray, xs), **{k: jnp.asarray(v) for k, v in state.items()})
+    got, got_state = TX.mlstm_recurrent(
+        *map(torch.as_tensor, xs),
+        **{k: torch.as_tensor(v) for k, v in state.items()})
+    _close(got, want, CELL_TOL)
+    for g, w in zip(got_state, want_state):
+        _close(g, w, CELL_TOL)
+
+
+def test_slstm_cell_matches_repro():
+    rng = np.random.default_rng(11)
+    B, d = 3, 16
+
+    def normal(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    x_t = normal(B, 4 * d)
+    state = (normal(B, d), normal(B, d), np.abs(normal(B, d)),
+             normal(B, d), normal(d, 4 * d, scale=0.2), normal(4 * d))
+    want = JX._slstm_cell(jnp.asarray(x_t), tuple(map(jnp.asarray, state)))
+    got = TX._slstm_cell(torch.as_tensor(x_t),
+                         tuple(map(torch.as_tensor, state)))
+    for g, w in zip(got, want):
+        _close(g, w, 1e-6)
+
+
+# -- the layers ----------------------------------------------------------------
+
+LAYERS = {"mlstm": (0, JX.mlstm_layer, TX.mlstm_layer, JX.init_mlstm_cache,
+                    TX.init_mlstm_cache),
+          "slstm": (1, JX.slstm_layer, TX.slstm_layer, JX.init_slstm_cache,
+                    TX.init_slstm_cache)}
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_in_three_modes(kind, dtype):
+    """Train (no cache), prefill of S = 40 (chunk 16 halves to 8) into a
+    cache, then 4 decode steps: outputs and the cache's states.  The
+    layer's matrices are ``repro``'s init times 5, so that its output
+    is not lost in the residual: at 0.02 x N(0, 1) the increment sits
+    below a bf16 ulp of the residual."""
+    pidx, jfn, tfn, jinit, tinit = LAYERS[kind]
+    cfg, tcfg = _cfg(dtype)
+    p_np = jax.tree_util.tree_map(
+        lambda a: a[0] * (5.0 if a.ndim > 2 else 1.0),
+        _jax_params(cfg)["groups"][pidx])
+    p_t = TW.stored(tcfg, jax.tree_util.tree_map(
+        lambda a: torch.as_tensor(np.array(a)), p_np))
+    B, S, n_dec = 2, 40, 4
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    x = np.random.default_rng(21).standard_normal(
+        (B, S + n_dec, cfg.d_model)).astype(np.float32)
+    xj = jnp.asarray(x, jdt)
+    xt = torch.as_tensor(x).to(getattr(torch, dtype))
+
+    def check(got, want):
+        if dtype == "float32":
+            _close(got, want, F32_TOL)
+        else:
+            _within_ulps(got, want, BF16_LAYER_ULPS)
+
+    want, _ = jax.jit(functools.partial(jfn, cfg, mode="train"))(p_np, xj)
+    got, none = tfn(tcfg, p_t, xt, mode="train")
+    assert none is None and got.dtype == xt.dtype
+    check(got, want)
+
+    jc, tc = jinit(cfg, B), tinit(tcfg, B, device="cpu")
+    want, jc = jax.jit(functools.partial(jfn, cfg, mode="prefill"))(
+        p_np, xj[:, :S], cache=jc)
+    got, tc = tfn(tcfg, p_t, xt[:, :S], cache=tc, mode="prefill")
+    check(got, want)
+    j_decode = jax.jit(functools.partial(jfn, cfg, mode="decode"))
+    for t in range(S, S + n_dec):
+        want, jc = j_decode(p_np, xj[:, t:t + 1], cache=jc)
+        got, tc = tfn(tcfg, p_t, xt[:, t:t + 1], cache=tc, mode="decode")
+        check(got, want)
+    assert tc["pos"] == int(jc["pos"]) == S + n_dec
+    for name in jc:
+        if name != "pos":
+            assert tc[name].dtype == torch.float32, name
+            check(tc[name], jc[name])
+
+
+def test_mlstm_decode_needs_one_step_and_a_cache():
+    cfg, tcfg = _cfg()
+    p_np = jax.tree_util.tree_map(lambda a: a[0],
+                                  _jax_params(cfg)["groups"][0])
+    p_t = TW.stored(tcfg, jax.tree_util.tree_map(
+        lambda a: torch.as_tensor(np.array(a)), p_np))
+    x = torch.zeros((1, 2, cfg.d_model))
+    with pytest.raises(ValueError, match="one step"):
+        TX.mlstm_layer(tcfg, p_t, x, mode="decode",
+                       cache=TX.init_mlstm_cache(tcfg, 1, device="cpu"))
+    with pytest.raises(ValueError, match="one step"):
+        TX.mlstm_layer(tcfg, p_t, x[:, :1], mode="decode")
+
+
+# -- the model -----------------------------------------------------------------
+
+def _tokens(cfg, B, S, seed=5):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, S))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", F32_TOL),
+                                       ("bfloat16", BF16_TOL)])
+def test_forward_matches_repro(dtype, tol):
+    """S = 48: three chunks of the smoke config's 16."""
+    cfg, tcfg = _cfg(dtype)
+    params_np = _jax_params(cfg)
+    model = TW.from_jax_params(tcfg, params_np, device="cpu")
+    assert model.kinds == ["mlstm", "slstm", "mlstm", "slstm"]
+    toks = _tokens(cfg, 2, 48)
+    want, _ = jax.jit(functools.partial(JT.forward, cfg, mode="train"))(
+        params_np, jnp.asarray(toks, jnp.int32))
+    got, _ = model(torch.as_tensor(toks))
+    assert got.shape == want.shape and got.dtype == getattr(torch, dtype)
+    _close(got, want, tol)
+
+
+def test_prefill_decode_matches_repro_and_the_full_forward():
+    cfg, tcfg = _cfg()
+    params_np = _jax_params(cfg)
+    model = TW.from_jax_params(tcfg, params_np, device="cpu")
+    B, S, n_dec = 2, 32, 4
+    toks = _tokens(cfg, B, S + n_dec, seed=6)
+    full, _ = model(torch.as_tensor(toks))
+    cache = model.init_cache(B, S + n_dec)
+    last, cache = model.prefill_step(torch.as_tensor(toks[:, :S]), cache)
+    jcache = JT.init_cache(cfg, B, S + n_dec)
+    jlast, jcache = jax.jit(functools.partial(JT.prefill_step, cfg))(
+        params_np, jnp.asarray(toks[:, :S], jnp.int32), cache=jcache)
+    _close(last, jlast, F32_TOL)
+    _close(last[:, 0], full[:, S - 1], F32_TOL)
+    j_decode = jax.jit(functools.partial(JT.decode_step, cfg))
+    for t in range(S, S + n_dec):
+        dec, cache = model.decode_step(torch.as_tensor(toks[:, t:t + 1]),
+                                       cache)
+        jdec, jcache = j_decode(params_np, jnp.asarray(toks[:, t:t + 1],
+                                                       jnp.int32),
+                                cache=jcache)
+        _close(dec, jdec, F32_TOL)
+        # tests/test_models.py's tolerance
+        _close(dec[:, 0], full[:, t], 2e-3, 1e-3)
+    assert cache["t"] == S + n_dec
+    assert [c["pos"] for c in cache["layers"]] == [S + n_dec] * 4
+
+
+def _batch(cfg, B=2, S=32, seed=9):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+                np.int32),
+            "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(
+                np.int32),
+            "mask": (rng.uniform(size=(B, S)) > 0.2).astype(np.float32)}
+
+
+def _tbatch(b):
+    return {k: torch.as_tensor(v) for k, v in b.items()}
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_lm_loss_and_grads_match_jax(remat):
+    cfg, tcfg = _cfg(remat=remat)
+    params_np = _jax_params(dataclasses.replace(cfg, remat=True))
+    batch = _batch(cfg)
+    (want, jaux), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: JT.lm_loss(cfg, p, b), has_aux=True))(params_np, batch)
+    model = TW.from_jax_params(tcfg, params_np, device="cpu",
+                               trainable=True)
+    loss, aux, grads = TS.value_and_grad(model, _tbatch(batch))
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-6)
+    for key in ("nll", "zloss"):
+        np.testing.assert_allclose(float(aux[key]), float(jaux[key]),
+                                   rtol=1e-6)
+    names = [n for n, _ in model.named_parameters()]
+    got = TW.grouped(tcfg, dict(zip(names, grads)))
+    assert jax.tree_util.tree_structure(got) == \
+        jax.tree_util.tree_structure(jax.tree_util.tree_map(np.asarray,
+                                                            jgrads))
+    leaves = jax.tree_util.tree_leaves(got)
+    assert len(leaves) == 3 + 11 + 5      # head and norm; mLSTM; sLSTM
+    for g, w in zip(leaves, jax.tree_util.tree_leaves(jgrads)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-6)
+
+
+def test_lm_loss_matches_jax_bf16():
+    cfg, tcfg = _cfg("bfloat16")
+    params_np = _jax_params(cfg)
+    batch = _batch(cfg)
+    want, _ = jax.jit(lambda p, b: JT.lm_loss(cfg, p, b))(params_np, batch)
+    model = TW.from_jax_params(tcfg, params_np, device="cpu",
+                               trainable=True)
+    loss, _, grads = TS.value_and_grad(model, _tbatch(batch))
+    np.testing.assert_allclose(float(loss), float(want), rtol=5e-3)
+    assert all(g.dtype == torch.float32 and torch.isfinite(g).all()
+               for g in grads)
+
+
+def test_train_step_matches_repro():
+    cfg, tcfg = _cfg()
+    params_np = _jax_params(cfg)
+    batch = _batch(cfg, B=4, S=16, seed=10)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params_np)
+    jstep = jax.jit(JS.make_train_step(cfg, JTrainConfig()))
+    jparams, jstate, jm = jstep(jparams, JA.adamw_init(jparams), batch)
+    model = TW.from_jax_params(tcfg, params_np, device="cpu",
+                               trainable=True)
+    opt = adamw_init(dict(model.named_parameters()))
+    model, opt, m = TS.make_train_step(tcfg, TrainConfig())(
+        model, opt, _tbatch(batch))
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                               rtol=1e-6)
+    lr = float(m["lr"])
+    np.testing.assert_allclose(lr, float(jm["lr"]), rtol=1e-6)
+    for g, w in zip(jax.tree_util.tree_leaves(TW.grouped(tcfg, opt.mu)),
+                    jax.tree_util.tree_leaves(jstate.mu)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-7)
+    params = dict(model.named_parameters())
+    for g, w in zip(jax.tree_util.tree_leaves(TW.grouped(tcfg, params)),
+                    jax.tree_util.tree_leaves(jparams)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=2 * lr)
+
+
+def test_storage_dtypes():
+    """Serving: the matrices in bf16 but the sLSTM's ``w_rec``, which
+    stays float32 with the vectors; trainable: everything float32.  The
+    port's own init draws the same shapes and dtypes."""
+    cfg, tcfg = _cfg("bfloat16")
+    params_np = _jax_params(cfg)
+    model = TW.from_jax_params(tcfg, params_np, device="cpu")
+    m_layer, s_layer = model.layers[0], model.layers[1]
+    for name in ("up_v", "up_g", "wq", "wk", "wv", "w_i", "w_f", "down"):
+        assert m_layer[name].dtype == torch.bfloat16, name
+    for name in ("b_i", "b_f"):
+        assert m_layer[name].dtype == torch.float32, name
+    for name in ("w_in", "down"):
+        assert s_layer[name].dtype == torch.bfloat16, name
+    assert s_layer["w_rec"].dtype == torch.float32
+    assert s_layer["w_rec"].shape == (cfg.d_model, 4 * cfg.d_model)
+    assert s_layer["bias"].dtype == torch.float32
+    assert m_layer["ln"]["scale"].dtype == s_layer["ln"]["scale"].dtype \
+        == torch.float32
+    assert model.embed.dtype == model.lm_head.dtype == torch.bfloat16
+    trainable = TW.from_jax_params(tcfg, params_np, device="cpu",
+                                   trainable=True)
+    assert {p.dtype for p in trainable.parameters()} == {torch.float32}
+    own = TT.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    shapes = {k: (tuple(v.shape), v.dtype)
+              for k, v in own.state_dict().items()}
+    assert shapes == {k: (tuple(v.shape), v.dtype)
+                      for k, v in model.state_dict().items()}
+    assert sum(v.numel() for v in own.state_dict().values()) \
+        == tcfg.param_count()
+    # repro's gate biases: forget 3 (mLSTM a head; sLSTM's f quarter)
+    d = tcfg.d_model
+    assert torch.equal(own.layers[0]["b_f"], torch.full((2,), 3.0))
+    assert torch.equal(own.layers[0]["b_i"], torch.zeros(2))
+    assert torch.equal(own.layers[1]["bias"], torch.as_tensor(
+        np.array(params_np["groups"][1]["bias"][0])))
+    assert float(own.layers[1]["bias"][2 * d:3 * d].min()) == 3.0
+    assert TC.get(ARCH).param_count() == 2_019_510_608
+
+
+# -- the CLIs ------------------------------------------------------------------
+
+def test_serve_and_train_clis(tmp_path, capsys):
+    TSV.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--batches",
+              "2", "--batch-size", "2", "--prompt-len", "16", "--decode",
+              "3"])
+    out = capsys.readouterr().out
+    assert "batch 1: (2, 3) tokens" in out and "served 2 batches" in out
+    res = TTR.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--steps",
+                    "3", "--ckpt-dir", str(tmp_path)])
+    assert res.steps_run == 3 and np.isfinite(res.final_loss)
+
+
+# -- elastic re-meshing --------------------------------------------------------
+
+@pytest.mark.parametrize("n_pods,lost,kw", [
+    (4, [1], {}), (4, [0, 2], {}), (8, [], {}), (2, [0], {}),
+    (3, [2, 0], {}), (4, [3, 3, 1], {}), (5, [0, 1, 2, 3], {}),
+    (4, [2], {"pod_shape": (8, 32), "axes": ("fsdp", "tp")}),
+    (2, [1], {"pod_shape": (4, 4)})])
+def test_plan_elastic_remesh_matches_repro(n_pods, lost, kw):
+    want = JP.plan_elastic_remesh(n_pods, lost, **kw)
+    got = TF.plan_elastic_remesh(n_pods, lost, **kw)
+    assert isinstance(got, TF.ElasticPlan)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert [type(getattr(got, f.name)) for f in dataclasses.fields(got)] \
+        == [type(getattr(want, f.name)) for f in dataclasses.fields(want)]
+
+
+@pytest.mark.parametrize("n_pods,lost", [(3, [0, 1, 2]), (1, [0]),
+                                         (0, [])])
+def test_plan_elastic_remesh_all_lost_raises(n_pods, lost):
+    with pytest.raises(RuntimeError, match="all pods lost") as want:
+        JP.plan_elastic_remesh(n_pods, lost)
+    with pytest.raises(RuntimeError, match="all pods lost") as got:
+        TF.plan_elastic_remesh(n_pods, lost)
+    assert str(got.value) == str(want.value)
