@@ -393,6 +393,35 @@ failure:
    CPU's; on the card a prefill of 480 tokens and 32 decode steps against
    the full forward within LOGIT_TOL_F32; in bf16 two runs of a step
    bit-identical.  Prints the phase's seconds by part.
+23. The distributed paths (``repro_torch.sharding``,
+   ``solver_backends.shard_scenarios``, ``make_train_step`` and ``train``
+   with a group).  (a) A 1-rank NCCL group under ``sharding.use``: the
+   sweep's solve (8 default-grid scenarios, J = 300, dt = 1/60, both
+   objectives) takes the one-process path (``scenario_partition`` gives
+   ``(None, None, None)``, ``shard_scenarios`` returns its function
+   itself), one ``dp_recurrence`` launch a solve, tables bit-identical to
+   the solve without a group.  (b-d) Two gloo ranks on the one card
+   (NCCL refuses two ranks on one device), started by
+   ``torch.multiprocessing`` with ``spawn``; each loads the kernels the
+   parent built and builds nothing.  (b) The same solves and a refined
+   makespan solve, sharded: each rank's launches recorded, 3 of shape
+   (4, 301, 1441) and the refine path's coarse one, each bit-identical to
+   ``dp_recurrence_plain`` on its inputs; each rank's gathered tables
+   bit-identical to the parent's one-process solves.  (c) smollm-135m at
+   full width, bf16, float32 masters, remat, through ``train(...,
+   group=)``: 8 x 2048 rows split 4 + 4, P23_STEPS steps (the flash pair
+   and the manager's DP solve on the path); losses and parameters
+   bit-identical to the parent's one-process run with ``grad_accum = 2``
+   and across the ranks; prints the step ms per rank, the gradient
+   all-reduce's ms and the one-process step ms.  (d) The elastic
+   pod-loss resume at the same width: the two ranks as (pod 2, data 1)
+   train P23_ELASTIC steps and save (rank 0 writes), pod 1 is lost
+   (``plan_elastic_remesh(2, [1], pod_shape=(1,), axes=("data",))``), and
+   the survivor restores through ``CheckpointManager`` and trains
+   P23_ELASTIC more steps at the plan's batch scale (global batch 4);
+   its losses and parameters bit-identical to the parent's one-process
+   replay from the same checkpoint.  No claim about several cards: the
+   machine has one.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -400,6 +429,7 @@ Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import json
 import os
 import re
@@ -568,6 +598,12 @@ P20_STEPS, P20_WARMUP, P20_CPU_LAYERS = 12, 4, 3
 P22_ARCH, P22_BATCH, P22_PROMPT, P22_DECODE = "xlstm-1.3b", 8, 2048, 32
 P22_TRAIN_LAYERS, P22_STEPS, P22_ACCUM = 8, 3, 1
 P22_CPU_B, P22_CPU_S = 2, 512
+# phase 23: two gloo ranks share the one card (NCCL refuses two ranks on one
+# device); each solves 4 of the 8 scenarios of the sweep's solve, and each
+# trains smollm-135m at full width on 4 of the 8 x 2048 rows: P23_STEPS
+# steps through ``train``, P23_TIMED more timed; the elastic resume trains
+# P23_ELASTIC steps on both ranks and as many on the survivor
+P23_WORLD, P23_STEPS, P23_TIMED, P23_ELASTIC = 2, 3, 2, 2
 # the backward's loop kernel (a thread a channel) at the microbatch shape,
 # bf16, on aligned inputs, before the chunked kernel took that shape:
 # CUDA-graph replays on an H100 80GB HBM3 at 700 W; phase 20d prints it
@@ -4554,6 +4590,401 @@ def xlstm_phase(torch, smi):
           f"{json.dumps(seconds)}")
 
 
+# ---------------------------------------------------------------------------
+# the distributed paths (phase 23)
+# ---------------------------------------------------------------------------
+
+def digest(torch, tensors):
+    """SHA-256 of the tensors' bytes, in order: equal digests mean
+    bit-identical tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def p23_solves(refined=True):
+    """The sweep's solve on the card (8 default-grid scenarios at J_MAIN,
+    DT_MAIN) in both objectives and, with ``refined``, the refined makespan
+    solve; under an active group each is sharded."""
+    from repro_torch.core import market, scenarios
+    from repro_torch.core.policies import checkpointing
+    dists = [sc.dist() for sc in scenarios.default_grid()]
+    rng = np.random.default_rng(0)
+    price = market.PriceGrid.from_prices(
+        rng.uniform(0.05, 0.6, size=(len(dists), 96)), 0.25)
+    kw = dict(grid_dt=DT_MAIN, delta_steps=DELTA, n_sweeps=N_SWEEPS,
+              device="cuda")
+    out = {"makespan": checkpointing.solve_batch(dists, J_MAIN, **kw),
+           "dollars": checkpointing.solve_batch(
+               dists, J_MAIN, objective="dollars", price=price, **kw)}
+    if refined:
+        out["refined"] = checkpointing.solve_batch(dists, J_MAIN, refine=True,
+                                                   **kw)
+    return out
+
+
+def p23_steps(torch, cfg, tc, group, model, opt, pipe, start, end, mgr=None):
+    """Train steps ``start..end`` on this rank's rows of ``pipe``'s global
+    batches (all of them with no group); with ``mgr``, save on its
+    schedule.  Returns the optimizer state and the losses."""
+    from repro_torch.launch import steps
+    step_fn = steps.make_train_step(cfg, tc, group)
+    rank, world = (0, 1) if group is None else (
+        torch.distributed.get_rank(group),
+        torch.distributed.get_world_size(group))
+    losses = []
+    for step in range(start, end):
+        batch = pipe.batch(step)
+        rows = pipe.global_batch // world
+        _, opt, m = step_fn(model, opt, {k: v[rank * rows:(rank + 1) * rows]
+                                         for k, v in batch.items()})
+        losses.append(float(m["loss"]))
+        if mgr is not None and mgr.should_checkpoint(step + 1):
+            mgr.save(step + 1, {"params": dict(model.named_parameters()),
+                                "opt": opt})
+    return opt, losses
+
+
+def p23_step_ms(torch, step_fn, model, opt, batch):
+    """The median wall time of P23_TIMED more train steps, each ending in
+    a synchronize (the model has run, so no warm-up)."""
+    times = []
+    box = {"opt": opt}
+    for _ in range(P23_TIMED):
+        t0 = time.perf_counter()
+        _, box["opt"], _ = step_fn(model, box["opt"], batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def p23_rank(rank, world, work):
+    """One rank of phases 23b-d, started by ``torch.multiprocessing`` with
+    ``spawn``: loads the kernels the parent built, joins a gloo group over
+    a ``file://`` rendezvous in ``work``, and writes its results to
+    ``work/rank<r>.json``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs, sharding
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import distributions
+    from repro_torch.core.policies import solver_backends as SB
+    from repro_torch.data import SyntheticLM
+    from repro_torch.fault import plan_elastic_remesh
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dp_recurrence import (dp_recurrence,
+                                                   dp_recurrence_plain)
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import _load, train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    missing = [k for k in KERNELS if not _build.library_path(k).exists()]
+    check(not missing, f"rank {rank}: kernels not built by the parent: "
+                       f"{missing}")
+    dist.init_process_group("gloo", init_method=f"file://{work}/rendezvous",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    everyone = dist.group.WORLD
+    res = {"rank": rank}
+    try:
+        # -- 23b: the sharded solve --------------------------------------
+        t0 = time.perf_counter()
+        with sharding.use(everyone), recorded_launches(dp_recurrence) as rec:
+            res["partition"] = list(SB.scenario_partition(8)[1:])
+            zero_counts([dp_recurrence])
+            tables = p23_solves()
+            torch.cuda.synchronize()
+            res["dp_launches"] = dp_recurrence.launches
+        res["launch_shapes"] = [list(out[0].shape) for _, _, out in rec.calls]
+        hold_to_plain(torch, dp_recurrence_plain, rec, f"23b rank {rank}")
+        res["tables"] = {k: digest(torch, [t.V, t.K])
+                         for k, t in tables.items()}
+        res["refine_info"] = {k: v for k, v in
+                              tables["refined"].refine_info.items()
+                              if k in ("applied", "verified_col0",
+                                       "fallback")}
+        res["seconds_b"] = time.perf_counter() - t0
+        del tables, rec
+
+        # -- 23c: data-parallel training ---------------------------------
+        t0 = time.perf_counter()
+        cfg = configs.get(TRAIN_ARCH)
+        tc = TrainConfig(ckpt_dir=os.path.join(work, "c"),
+                         warmup_steps=TRAIN_WARMUP, total_steps=P23_STEPS)
+        fns = (dp_recurrence, flash_attention, flash_attention_bwd)
+        zero_counts(fns)
+        run = train(cfg, tc, total_steps=P23_STEPS, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, verbose=False, device="cuda",
+                    group=everyone)
+        torch.cuda.synchronize()
+        res["train_launches"] = counts(fns)
+        res["train_losses"] = run.losses
+        params = list(run.model.parameters())
+        res["train_params"] = digest(torch, params)
+        want = torch.load(os.path.join(work, "c_params.pt"))
+        res["train_params_max_abs_diff"] = max(
+            float((p.detach() - w.to(p.device)).abs().max())
+            for p, w in zip(params, want))
+        del want
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=tc.seed,
+                           device="cuda")
+        rows = TRAIN_BATCH // world
+        batch = {k: v[rank * rows:(rank + 1) * rows]
+                 for k, v in pipe.batch(P23_STEPS).items()}
+        res["step_ms"] = p23_step_ms(
+            torch, steps.make_train_step(cfg, tc, everyone), run.model,
+            adamw_init(dict(run.model.named_parameters())), batch)
+        flat = torch.zeros(sum(p.numel() for p in params) + 3,
+                           device="cuda")
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            sharding.all_reduce_sum_(flat, everyone)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        res["all_reduce_ms"] = statistics.median(times)
+        res["all_reduce_bytes"] = flat.numel() * 4
+        del run, params, flat, batch
+        torch.cuda.empty_cache()
+        res["seconds_c"] = time.perf_counter() - t0
+
+        # -- 23d: the elastic resume -------------------------------------
+        t0 = time.perf_counter()
+        tc = TrainConfig(warmup_steps=1, total_steps=2 * P23_ELASTIC)
+        mgr = CheckpointManager(
+            directory=os.path.join(work, "d"),
+            dist=distributions.constrained_for(), policy="fixed",
+            fixed_interval_steps=100, async_write=False, device="cuda",
+            write=rank == 0)
+        model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda", trainable=True)
+        opt = adamw_init(dict(model.named_parameters()))
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=0, device="cuda")
+        with sharding.use(everyone):
+            opt, res["elastic_l1"] = p23_steps(torch, cfg, tc, everyone,
+                                               model, opt, pipe, 0,
+                                               P23_ELASTIC, mgr)
+        mgr.save(P23_ELASTIC, {"params": dict(model.named_parameters()),
+                               "opt": opt})
+        plan = plan_elastic_remesh(world, [1], pod_shape=(1,),
+                                   axes=("data",))
+        survivors = list(plan.surviving_pods)
+        group = dist.new_group(survivors)
+        mgr.wait()
+        dist.barrier()
+        res["survivor"] = rank in survivors
+        if res["survivor"]:
+            restored = mgr.restore({"params": dict(model.named_parameters()),
+                                    "opt": opt})
+            check(restored is not None, "23d: no checkpoint to restore")
+            state, step0, _ = restored
+            opt = _load(model, state)
+            pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                               global_batch=int(TRAIN_BATCH
+                                                * plan.batch_scale),
+                               seed=0, device="cuda")
+            with sharding.use(group):
+                _, res["elastic_l2"] = p23_steps(
+                    torch, cfg, tc, group, model, opt, pipe, step0,
+                    step0 + P23_ELASTIC)
+            res["elastic_resumed"] = step0
+            res["elastic_batch"] = pipe.global_batch
+            res["elastic_params"] = digest(torch, model.parameters())
+        res["seconds_d"] = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def distributed_phase(torch, smi):
+    """Phase 23: (a) a 1-rank NCCL group takes the one-process path;
+    (b-d) two gloo ranks on the card: the sharded solve, data-parallel
+    training of smollm-135m at full width and the elastic pod-loss
+    resume, each held to the one-process run.  Returns the per-rank launch
+    counts of the sharded solve and of the training run."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch import configs, sharding
+    from repro_torch.checkpoint.manager import restore_latest
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.policies import solver_backends as SB
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels.dp_recurrence import dp_recurrence
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import _load, train
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_init
+    seconds = {}
+    work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        # -- 23a: a 1-rank group ------------------------------------------
+        t0 = time.perf_counter()
+        one = p23_solves()
+        digests = {k: digest(torch, [t.V, t.K]) for k, t in one.items()}
+        dist.init_process_group("nccl", init_method=f"file://{work}/solo",
+                                rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=300))
+        try:
+            with sharding.use(dist.group.WORLD):
+                part = SB.scenario_partition(8)
+                fn_back = SB.shard_scenarios(p23_solves, 8, 2, 2)[0] \
+                    is p23_solves
+                dp_recurrence.launches = 0
+                got = p23_solves(refined=False)
+                check(dp_recurrence.launches == 2,
+                      f"23a: {dp_recurrence.launches} launches for the "
+                      f"two solves")
+        finally:
+            dist.destroy_process_group()
+        same = {k: digest(torch, [t.V, t.K]) == digests[k]
+                for k, t in got.items()}
+        print(f"[p23a] 1-rank nccl group: scenario_partition(8) {part}; "
+              f"shard_scenarios returns fn itself {fn_back}; tables "
+              f"bit-identical to the solve without a group {same}; one "
+              f"dp_recurrence launch a solve")
+        check(part == (None, None, None) and fn_back and all(same.values()),
+              "23a: a 1-rank group did not take the one-process path")
+        del got
+        seconds["a"] = time.perf_counter() - t0
+
+        # -- the one-process references of 23c --------------------------
+        t0 = time.perf_counter()
+        cfg = configs.get(TRAIN_ARCH)
+        tc = TrainConfig(ckpt_dir=os.path.join(work, "c_one"),
+                         warmup_steps=TRAIN_WARMUP, total_steps=P23_STEPS,
+                         grad_accum=P23_WORLD)
+        ref = train(cfg, tc, total_steps=P23_STEPS, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, verbose=False, device="cuda")
+        torch.save([p.detach().cpu() for p in ref.model.parameters()],
+                   os.path.join(work, "c_params.pt"))
+        ref_digest = digest(torch, ref.model.parameters())
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=TRAIN_BATCH, seed=tc.seed,
+                           device="cuda")
+        one_step_ms = p23_step_ms(
+            torch, steps.make_train_step(cfg, tc), ref.model,
+            adamw_init(dict(ref.model.named_parameters())),
+            pipe.batch(P23_STEPS))
+        ref_losses = ref.losses
+        del ref
+        torch.cuda.empty_cache()
+        seconds["references"] = time.perf_counter() - t0
+
+        # -- 23b-d: two gloo ranks on the card ---------------------------
+        t0 = time.perf_counter()
+        mp.start_processes(p23_rank, args=(P23_WORLD, work),
+                           nprocs=P23_WORLD, start_method="spawn")
+        ranks = []
+        for r in range(P23_WORLD):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        seconds["ranks"] = time.perf_counter() - t0
+        for r in ranks:
+            print(f"[p23b] rank {r['rank']}: partition {r['partition']}; "
+                  f"dp_recurrence launches {r['dp_launches']} of shapes "
+                  f"{r['launch_shapes']}; refine {r['refine_info']}; "
+                  f"gathered tables bit-identical to the one-process solve "
+                  f"{ {k: v == digests[k] for k, v in r['tables'].items()} }"
+                  f"; {r['seconds_b']:.1f} s")
+            check(r["partition"] == [r["rank"], P23_WORLD],
+                  f"23b rank {r['rank']}: partition {r['partition']}")
+            block = [8 // P23_WORLD, J_MAIN + 1,
+                     int(round(24.0 / DT_MAIN)) + 1]
+            check(r["launch_shapes"].count(block) == 3
+                  and len(r["launch_shapes"]) == 4
+                  and all(s[0] == block[0] for s in r["launch_shapes"]),
+                  f"23b rank {r['rank']}: launches {r['launch_shapes']}")
+            check(r["dp_launches"] == len(r["launch_shapes"]),
+                  "23b: recorded launches differ from the count")
+            check(r["tables"] == digests, f"23b rank {r['rank']}: gathered "
+                                          f"tables differ from one process's")
+        for r in ranks:
+            print(f"[p23c] rank {r['rank']}: losses {r['train_losses']} "
+                  f"(one process, grad_accum {P23_WORLD}: {ref_losses}); "
+                  f"parameters bit-identical to one process's "
+                  f"{r['train_params'] == ref_digest} (max |diff| "
+                  f"{r['train_params_max_abs_diff']:.3e}); launches "
+                  f"{r['train_launches']}; {r['seconds_c']:.1f} s")
+            check(r["train_losses"] == ref_losses,
+                  f"23c rank {r['rank']}: losses differ from one process's")
+            check(r["train_params"] == ref_digest,
+                  f"23c rank {r['rank']}: parameters differ from one "
+                  f"process's")
+            check(r["train_launches"]["flash_attention_bwd"]
+                  == P23_STEPS * cfg.n_layers
+                  and r["train_launches"]["dp_recurrence"] >= 1,
+                  f"23c rank {r['rank']}: launches {r['train_launches']}")
+        check(len({r["train_params"] for r in ranks}) == 1,
+              "23c: the ranks hold different parameters")
+        timing = {"step_ms_by_rank": [r["step_ms"] for r in ranks],
+                  "all_reduce_ms_by_rank": [r["all_reduce_ms"]
+                                            for r in ranks],
+                  "all_reduce_bytes": ranks[0]["all_reduce_bytes"],
+                  "one_process_step_ms": one_step_ms,
+                  "rows_per_rank": TRAIN_BATCH // P23_WORLD,
+                  "seq": TRAIN_SEQ, "card": smi}
+        print("[timing] data-parallel smollm-135m " + json.dumps(timing))
+
+        # -- 23d: the survivor against one process's replay --------------
+        t0 = time.perf_counter()
+        survivor = [r for r in ranks if r["survivor"]]
+        check(len(survivor) == 1 and survivor[0]["rank"] == 0,
+              f"23d: survivors {[r['rank'] for r in survivor]}")
+        s = survivor[0]
+        tc = TrainConfig(warmup_steps=1, total_steps=2 * P23_ELASTIC)
+        model = T.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda", trainable=True)
+        opt = adamw_init(dict(model.named_parameters()))
+        state, step0, _ = restore_latest(
+            os.path.join(work, "d"),
+            {"params": dict(model.named_parameters()), "opt": opt})
+        opt = _load(model, state)
+        pipe = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=s["elastic_batch"], seed=0,
+                           device="cuda")
+        _, want = p23_steps(torch, cfg, tc, None, model, opt, pipe, step0,
+                            step0 + P23_ELASTIC)
+        same = s["elastic_params"] == digest(torch, model.parameters())
+        print(f"[p23d] pods 2 x data 1, pod 1 lost: survivor resumed at "
+              f"step {s['elastic_resumed']} on a global batch of "
+              f"{s['elastic_batch']}; losses before {s['elastic_l1']}, "
+              f"after {s['elastic_l2']} (one-process replay {want}); "
+              f"parameters bit-identical to the replay's {same}")
+        check(s["elastic_resumed"] == P23_ELASTIC
+              and s["elastic_batch"] == TRAIN_BATCH // 2,
+              "23d: resumed at the wrong step or batch")
+        check(all(np.isfinite(s["elastic_l1"] + s["elastic_l2"])),
+              "23d: a loss is not finite")
+        check(s["elastic_l2"] == want and same,
+              "23d: the survivor differs from one process's replay")
+        del model, opt, state
+        torch.cuda.empty_cache()
+        seconds["replay"] = time.perf_counter() - t0
+        seconds.update({f"rank0_{k}": ranks[0][f"seconds_{k}"]
+                        for k in "bcd"})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[p23] phase 23 seconds: "
+          f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    return {"sharded": ranks[0]["dp_launches"],
+            "training": ranks[0]["train_launches"]}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4885,6 +5316,11 @@ def main() -> int:
     # -- 22. xlstm-1.3b -----------------------------------------------------
     xlstm_phase(torch, smi)
     mark("22")
+
+    # -- 23. the distributed paths ---------------------------------------
+    p23_launches = distributed_phase(torch, smi)
+    kernel["launches_by_path"]["sharded"] = p23_launches["sharded"]
+    mark("23")
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),
@@ -4933,6 +5369,10 @@ def main() -> int:
             entry[f"{key}_shape"] = {
                 k: times[name][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")}
+    # phase 23: one rank's launches in the data-parallel training run
+    for entry in (kernels[1], kernels[4]):
+        entry["launches_by_path"]["data_parallel_training"] = \
+            p23_launches["training"][entry["name"]]
     # phase 20: recurrentgemma-2b's training launches and the kernels'
     # times at its microbatch shape; the recurrence's backward
     kernels[3]["launches_by_path"] = {

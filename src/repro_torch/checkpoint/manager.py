@@ -169,7 +169,9 @@ class CheckpointManager:
     policy: "dp" (the paper, non-uniform), "young_daly", "fixed", "none".
     Times are in hours of *pod age*; steps are mapped through the measured
     step time (EMA-updated online via ``observe_step_time``).  ``device``
-    is where the DP is solved.
+    is where the DP is solved.  ``write=False`` keeps the schedule and the
+    counts but writes no file: the ranks of a data-parallel run other than
+    rank 0, which writes for all of them.
     """
     directory: str
     dist: Any                               # preemption model (core.distributions)
@@ -182,6 +184,7 @@ class CheckpointManager:
     async_write: bool = True
     fixed_interval_steps: int = 100
     device: str = "cuda"
+    write: bool = True
 
     def __post_init__(self):
         self._tables = None
@@ -252,9 +255,10 @@ class CheckpointManager:
         meta = dict(metadata or {})
         meta["policy"] = self.policy
         meta["emergency"] = emergency
-        self._writer = save_checkpoint(
-            self.directory, step, tree, meta,
-            blocking=not self.async_write or emergency)
+        if self.write:
+            self._writer = save_checkpoint(
+                self.directory, step, tree, meta,
+                blocking=not self.async_write or emergency)
         self._last_ckpt_step = step
         self.n_saved += 1
         if emergency:

@@ -136,6 +136,31 @@ def _dollar_inputs(price, grid_dt: float, t_max: int, job_steps: int,
             torch.as_tensor(ro, device=device))
 
 
+def _sharded(fn, n_out: int, **operands):
+    """``fn(**operands)`` through ``solver_backends.shard_scenarios``: under
+    an active process group each tensor operand (every one carries the
+    leading ``(S,)`` axis) is cut to this rank's scenarios and the
+    ``n_out`` outputs are gathered; ``None`` and the makespan objective's
+    float overhead pass through."""
+    names = [k for k, v in operands.items() if isinstance(v, torch.Tensor)]
+
+    def kern(*xs):
+        return fn(**{**operands, **dict(zip(names, xs))})
+
+    wrapped, _ = solver_backends.shard_scenarios(
+        kern, operands[names[0]].shape[0], len(names), n_out)
+    return wrapped(*(operands[k] for k in names))
+
+
+def _solve(mod, Fc, Hc, grid_dt, ro, v_init, Pc, **statics):
+    """``mod.solve_tables_batch``, its scenarios sharded over the active
+    process group (see :func:`_sharded`)."""
+    return _sharded(
+        lambda Fc, Hc, ro, v_init, Pc: mod.solve_tables_batch(
+            Fc, Hc, grid_dt, ro, v_init, Pc, **statics),
+        2, Fc=Fc, Hc=Hc, ro=ro, v_init=v_init, Pc=Pc)
+
+
 def _dispatch_refined(mod, dists, Fc, Hc, grid_dt, ro, v_init, rplan,
                       refine_check: str, price, Pc, dev, *, j_max: int,
                       t_max: int, delta_steps: int, n_sweeps: int):
@@ -160,27 +185,26 @@ def _dispatch_refined(mod, dists, Fc, Hc, grid_dt, ro, v_init, rplan,
     if Pc is not None:
         Pc_c, _ = _dollar_inputs(price, dt_c, t_max_c, j_max_c, delta_c, 0.0,
                                  len(dists), dev)
-    _, Kc = mod.solve_tables_batch(
-        Fc_c, Hc_c, dt_c, ro, None, Pc_c, j_max=j_max_c, t_max=t_max_c,
-        delta_steps=delta_c, n_sweeps=n_sweeps)
+    _, Kc = _solve(mod, Fc_c, Hc_c, dt_c, ro, None, Pc_c, j_max=j_max_c,
+                   t_max=t_max_c, delta_steps=delta_c, n_sweeps=n_sweeps)
     caps = refine_mod.candidate_caps(
         Kc, refine_mod.cone_segments(j_max, t_max, delta_steps),
         factor=factor, radius=radius, j_max_c=j_max_c, t_max_c=t_max_c)
-    V, K, ok = refine_mod.refined_solve(mod, Fc, Hc, grid_dt, ro, v_init, Pc,
-                                        caps=caps, **statics)
+    V, K, ok = _sharded(
+        lambda Fc, Hc, ro, v_init, Pc: refine_mod.refined_solve(
+            mod, Fc, Hc, grid_dt, ro, v_init, Pc, caps=caps, **statics),
+        3, Fc=Fc, Hc=Hc, ro=ro, v_init=v_init, Pc=Pc)
     info = dict(rplan, applied=True, t_max_c=t_max_c, caps=list(caps),
                 verified_col0=bool(ok.all()), fallback=False)
     if not info["verified_col0"]:
         # a cap cut off an argmin on the restart-cost chain: serve the
         # unrefined solve instead
-        V, K = mod.solve_tables_batch(Fc, Hc, grid_dt, ro, v_init, Pc,
-                                      **statics)
+        V, K = _solve(mod, Fc, Hc, grid_dt, ro, v_init, Pc, **statics)
         info["fallback"] = True
     elif refine_check == "full":
         # compare the whole refined table with the unrefined solve (costs
         # more than the solve it checks)
-        Vf, Kf = mod.solve_tables_batch(Fc, Hc, grid_dt, ro, v_init, Pc,
-                                        **statics)
+        Vf, Kf = _solve(mod, Fc, Hc, grid_dt, ro, v_init, Pc, **statics)
         info["full_check_match"] = bool(torch.equal(V, Vf)) \
             and bool(torch.equal(K, Kf))
         if not info["full_check_match"]:
@@ -228,6 +252,12 @@ def solve_batch(dists: Sequence, job_steps: int, *,
 
     with ``dP(t, w) = Pc(t+w) - Pc(t)`` and ``R_j = restart_overhead x
     launch price + V[j, 0]``.
+
+    Under ``repro_torch.sharding.use(group)`` each solve splits its S
+    scenarios over the group's ranks when the group's size divides S
+    (``solver_backends.shard_scenarios``): every rank makes this call with
+    the same arguments, solves its block, and returns the whole tables,
+    equal bit for bit to the one-process solve.
     """
     dev = resolve_device(device)
     _check_objective(objective, price)
@@ -269,8 +299,7 @@ def solve_batch(dists: Sequence, job_steps: int, *,
                                 n_sweeps, refine_factor, refine_radius)
         refine_info = {"applied": False, "reason": "degenerate"}
     if rplan is None:
-        V, K = mod.solve_tables_batch(Fc, Hc, grid_dt, ro, v_init, Pc,
-                                      **statics)
+        V, K = _solve(mod, Fc, Hc, grid_dt, ro, v_init, Pc, **statics)
     else:
         V, K, refine_info = _dispatch_refined(
             mod, dists, Fc, Hc, grid_dt, ro, v_init, rplan, refine_check,

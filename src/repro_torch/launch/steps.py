@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import sharding
 from ..models import transformer as T
 from ..optim import adamw_update, cosine_schedule
 
@@ -30,13 +31,42 @@ def value_and_grad(model, batch):
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
-def make_train_step(cfg, tc):
+def _average_over_ranks(group, loss, aux, grads):
+    """The loss, the aux terms and the gradients summed over the ranks of
+    ``group`` and divided by its size, through one flat float32 buffer and
+    one ``all_reduce`` a step."""
+    world = torch.distributed.get_world_size(group)
+    keys = list(aux)
+    scalars = [loss, *(aux[k] for k in keys)]
+    flat = torch.cat([torch.stack(scalars).float()]
+                     + [g.reshape(-1).float() for g in grads])
+    sharding.all_reduce_sum_(flat, group).div_(world)
+    parts = flat.split([len(scalars)] + [g.numel() for g in grads])
+    out = [p.view(g.shape) for p, g in zip(parts[1:], grads)]
+    return parts[0][0], dict(zip(keys, parts[0][1:])), out
+
+
+def make_train_step(cfg, tc, group=None):
     """The train step of ``tc`` (a ``TrainConfig``): ``lm_loss`` and its
     gradients, over ``tc.grad_accum`` microbatches (consecutive slices of
     the batch axis, which is axis 1 of (3, B, S) M-RoPE positions;
     gradients summed in float32 and divided by their count, the losses
-    averaged), then the cosine learning rate and AdamW."""
+    averaged), then the cosine learning rate and AdamW.
+
+    Data parallelism, the counterpart of ``repro``'s gradient anchoring on
+    its batch axes: with a ``torch.distributed`` ``group`` of W > 1 ranks,
+    each rank's ``batch`` is its slice of the global batch; after its own
+    gradients (accumulated, when ``grad_accum > 1``) the float32 gradients,
+    the loss and the aux terms are summed over the ranks and divided by W,
+    so that AdamW, the clip and ``grad_norm`` see the same values on every
+    rank.  At W = 2 a step equals one process's step on the global batch
+    with ``grad_accum = 2`` bit for bit (a + b rounds alike in either
+    order); at larger W the sums' order differs.  Routing capacity and
+    ``moe.aux_load_balance_loss`` are computed per rank's slice, so a MoE
+    arch under data parallelism matches ``grad_accum = W``, not one
+    process on the global batch."""
     accum = max(int(tc.grad_accum), 1)
+    world = 1 if group is None else torch.distributed.get_world_size(group)
 
     def microbatch(batch, i, mb):
         def cut(k, v):
@@ -73,6 +103,8 @@ def make_train_step(cfg, tc):
             loss = torch.stack(losses).mean()
             aux = {k: torch.stack([a[k] for a in auxes]).mean()
                    for k in auxes[0]}
+        if world > 1:
+            loss, aux, grads = _average_over_ranks(group, loss, aux, grads)
         lr = cosine_schedule(opt_state.step, base_lr=tc.learning_rate,
                              warmup_steps=tc.warmup_steps,
                              total_steps=tc.total_steps)

@@ -62,7 +62,7 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.checkpoint.manager", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.models.moe",
             "repro_torch.models.xlstm", "repro_torch.configs.xlstm_1_3b",
-            "repro_torch.analytics"} <= names
+            "repro_torch.analytics", "repro_torch.sharding"} <= names
 
 
 def test_default_device_raises_without_a_gpu():

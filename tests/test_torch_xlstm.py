@@ -30,6 +30,10 @@ JAX side runs in its default float32.  Tolerances, case by case:
   moment atol 1e-7 + rtol 1e-4, parameters within 2 x lr).
 - Storage: serving matrices in the compute dtype except the sLSTM's
   ``w_rec``, float32 like the vectors; a trainable model all float32.
+- bf16 decode at depth (8 layers): the port's largest distance between
+  decode and the full forward at most 2 x ``repro``'s on the same weights
+  and prompts (the test's docstring says why the maximum is taken over
+  several weight scales and prompts).
 - ``plan_elastic_remesh``: every field of ``ElasticPlan`` equal, and the
   same ``RuntimeError`` when every pod is lost.
 """
@@ -303,6 +307,65 @@ def test_prefill_decode_matches_repro_and_the_full_forward():
         _close(dec[:, 0], full[:, t], 2e-3, 1e-3)
     assert cache["t"] == S + n_dec
     assert [c["pos"] for c in cache["layers"]] == [S + n_dec] * 4
+
+
+# bf16 decode at depth: weight scales and prompt seeds of the comparison
+DRIFT_SCALES = (1.0, 3.0, 5.0)
+DRIFT_SEEDS = (6, 7, 8)
+DRIFT_FACTOR = 2.0
+
+
+def test_bf16_decode_drift_at_depth_within_twice_repros():
+    """bf16 decode against the full forward at 8 layers (4 sLSTM), smoke
+    width, the same weights on both sides: the port's largest |decode -
+    full| over the decoded positions at most DRIFT_FACTOR x ``repro``'s.
+
+    Both sides round bf16 activations along two paths (a 32-token
+    prefill plus 8 decode steps, against one forward over 40 tokens whose
+    chunkwise mLSTM takes chunks of 8 where the prefill's take 16), so a
+    rounding that falls on either side of a bf16 boundary can move a later
+    logit.  At the smoke init no such flip reaches the logits (max ~0.45)
+    on either side, so the matrices are also scaled x 3 and x 5 (logits
+    up to ~2.4), as the layer tests scale them by 5; then each side flips
+    on some cases and not on others (at x 3 the port lands 0.0098 off on
+    prompt 6 where ``repro`` lands 0, ``repro`` 0.0195 on prompt 7 where
+    the port lands 0).  So the distances compared are the largest over
+    all scales and prompts, not case by case."""
+    B, S, n_dec = 2, 32, 8
+    cfg, tcfg = _cfg("bfloat16", n_layers=8)
+    forward = jax.jit(functools.partial(JT.forward, cfg, mode="train"))
+    prefill = jax.jit(functools.partial(JT.prefill_step, cfg))
+    decode = jax.jit(functools.partial(JT.decode_step, cfg))
+    port = ref = 0.0
+    for scale in DRIFT_SCALES:
+        params_np = jax.tree_util.tree_map(
+            lambda a: a * np.float32(scale) if a.ndim >= 2 else a,
+            _jax_params(cfg))
+        model = TW.from_jax_params(tcfg, params_np, device="cpu")
+        assert model.kinds.count("slstm") == 4
+        for seed in DRIFT_SEEDS:
+            toks = _tokens(cfg, B, S + n_dec, seed=seed)
+            with torch.no_grad():
+                full, _ = model(torch.as_tensor(toks))
+                cache = model.init_cache(B, S + n_dec)
+                _, cache = model.prefill_step(torch.as_tensor(toks[:, :S]),
+                                              cache)
+                for t in range(S, S + n_dec):
+                    dec, cache = model.decode_step(
+                        torch.as_tensor(toks[:, t:t + 1]), cache)
+                    port = max(port, float(np.abs(_np(dec[:, 0])
+                                                  - _np(full[:, t])).max()))
+            jtoks = jnp.asarray(toks, jnp.int32)
+            jfull, _ = forward(params_np, jtoks)
+            _, jcache = prefill(params_np, jtoks[:, :S],
+                                cache=JT.init_cache(cfg, B, S + n_dec))
+            for t in range(S, S + n_dec):
+                jdec, jcache = decode(params_np, jtoks[:, t:t + 1],
+                                      cache=jcache)
+                ref = max(ref, float(np.abs(_np(jdec[:, 0])
+                                            - _np(jfull[:, t])).max()))
+    assert ref > 0.0
+    assert port <= DRIFT_FACTOR * ref, (port, ref)
 
 
 def _batch(cfg, B=2, S=32, seed=9):
