@@ -15,16 +15,20 @@ yi-34b, deepseek-coder-33b, the MoE archs moonshot-v1-16b-a3b and
 phi3.5-moe-42b-a6.6b, and xlstm-1.3b):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --device cpu
+
+``--trace`` records the steps' spans (``repro_torch.tracing``) and prints
+their summary after the run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
-from .. import configs
+from .. import configs, tracing
 from ..core import distributions
 from ..device import resolve_device
 from ..fault import PreemptionSource
@@ -98,6 +102,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--decode", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", action="store_true",
+                    help="record spans and print their summary")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
@@ -106,14 +112,18 @@ def main(argv=None):
     dev = resolve_device(args.device)
     model = T.init(cfg, torch.Generator(device=dev).manual_seed(0),
                    device=dev)
-    records = serve(cfg, model, batches=args.batches,
-                    batch_size=args.batch_size, prompt_len=args.prompt_len,
-                    n_decode=args.decode, device=dev)
+    with tracing.recording() if args.trace else contextlib.nullcontext():
+        records = serve(cfg, model, batches=args.batches,
+                        batch_size=args.batch_size,
+                        prompt_len=args.prompt_len, n_decode=args.decode,
+                        device=dev)
     for i, r in enumerate(records):
         print(f"batch {i}: {tuple(r['tokens'].shape)} tokens in "
               f"{r['seconds']:.2f}s (pod age {r['pod_age']:.2f}h)")
     print(f"served {len(records)} batches, "
           f"{sum(r['rotated'] for r in records)} pod rotations")
+    if args.trace:
+        print(tracing.table(tracing.summary()))
 
 
 if __name__ == "__main__":

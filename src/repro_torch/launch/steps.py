@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import sharding
+from .. import sharding, tracing
 from ..models import transformer as T
 from ..optim import adamw_update, cosine_schedule
 
@@ -24,10 +24,13 @@ def value_and_grad(model, batch):
     not read (musicgen's untied embedding table under an embeds batch)
     gets zeros, as ``jax.value_and_grad`` gives it."""
     params = list(model.parameters())
-    loss, aux = T.lm_loss(model, batch)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(params, grads)]
+    with tracing.span("step.forward", device=model.device):
+        loss, aux = T.lm_loss(model, batch)
+    # remat's recomputation of each layer runs inside the backward
+    with tracing.span("step.backward", device=model.device):
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
@@ -75,7 +78,7 @@ def make_train_step(cfg, tc, group=None):
             return v[i * mb:(i + 1) * mb]
         return {k: cut(k, v) for k, v in batch.items()}
 
-    def train_step(model, opt_state, batch):
+    def update(model, opt_state, batch):
         names = [n for n, _ in model.named_parameters()]
         if accum == 1:
             loss, aux, grads = value_and_grad(model, batch)
@@ -105,34 +108,53 @@ def make_train_step(cfg, tc, group=None):
                    for k in auxes[0]}
         if world > 1:
             loss, aux, grads = _average_over_ranks(group, loss, aux, grads)
-        lr = cosine_schedule(opt_state.step, base_lr=tc.learning_rate,
-                             warmup_steps=tc.warmup_steps,
-                             total_steps=tc.total_steps)
-        _, opt_state, om = adamw_update(
-            dict(zip(names, grads)), opt_state, dict(model.named_parameters()),
-            learning_rate=lr, beta1=tc.beta1, beta2=tc.beta2, eps=tc.eps,
-            weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
+        with tracing.span("step.optimizer", device=model.device):
+            lr = cosine_schedule(opt_state.step, base_lr=tc.learning_rate,
+                                 warmup_steps=tc.warmup_steps,
+                                 total_steps=tc.total_steps)
+            _, opt_state, om = adamw_update(
+                dict(zip(names, grads)), opt_state,
+                dict(model.named_parameters()), learning_rate=lr,
+                beta1=tc.beta1, beta2=tc.beta2, eps=tc.eps,
+                weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
         return model, opt_state, {"loss": loss, **aux, **om}
+
+    def train_step(model, opt_state, batch):
+        with tracing.span("step.train", device=model.device,
+                          tokens=batch["labels"].numel(), unit=True):
+            return update(model, opt_state, batch)
 
     return train_step
 
 
+def _positions(batch) -> int:
+    """The (B, S) positions a serving batch feeds, tokens or embeds."""
+    x = batch.get("tokens")
+    return x.numel() if x is not None else batch["embeds"].shape[:2].numel()
+
+
 def make_prefill_step(cfg):
     def prefill(model, cache, batch):
-        return model.prefill_step(batch.get("tokens"), cache,
-                                  embeds=batch.get("embeds"),
-                                  positions=batch.get("positions"))
+        # a batch's prefill opens its unit, which its decode steps join
+        with tracing.span("step.prefill", device=model.device,
+                          tokens=_positions(batch), unit=True):
+            return model.prefill_step(batch.get("tokens"), cache,
+                                      embeds=batch.get("embeds"),
+                                      positions=batch.get("positions"))
 
     return prefill
 
 
 def make_decode_step(cfg):
     def decode(model, cache, batch):
-        logits, cache = model.decode_step(batch.get("tokens"), cache,
-                                          embeds=batch.get("embeds"),
-                                          positions=batch.get("positions"))
-        # greedy next token inside the step, as repro keeps it in-graph
-        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        # the host's issue of the step: nothing in it waits for the card
+        with tracing.span("step.decode", device=model.device,
+                          tokens=_positions(batch)):
+            logits, cache = model.decode_step(
+                batch.get("tokens"), cache, embeds=batch.get("embeds"),
+                positions=batch.get("positions"))
+            # greedy next token inside the step, as repro keeps it in-graph
+            next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return logits, next_tok, cache
 
     return decode

@@ -27,10 +27,14 @@ RG-LRU, MoE and xLSTM ones):
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3.5-moe-42b-a6.6b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch xlstm-1.3b --smoke --device cpu
+
+``--trace`` records the steps' spans (``repro_torch.tracing``) and prints
+their summary after the run.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import tempfile
@@ -41,7 +45,7 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from .. import configs, sharding
+from .. import configs, sharding, tracing
 from ..checkpoint import CheckpointManager
 from ..configs.base import TrainConfig
 from ..core import distributions
@@ -216,17 +220,22 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=os.path.join(
         tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", action="store_true",
+                    help="record spans and print their summary")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     tc = TrainConfig(ckpt_policy=args.ckpt_policy, ckpt_dir=args.ckpt_dir,
                      total_steps=args.steps)
-    res = train(cfg, tc, total_steps=args.steps,
-                inject_preemptions=args.preemptions, device=args.device)
+    with tracing.recording() if args.trace else contextlib.nullcontext():
+        res = train(cfg, tc, total_steps=args.steps,
+                    inject_preemptions=args.preemptions, device=args.device)
     print(f"done: {res.steps_run} steps, final loss {res.final_loss:.4f}, "
           f"{res.restarts} restarts, {res.checkpoints} checkpoints "
           f"({res.emergency_checkpoints} emergency), "
           f"{res.wasted_steps} wasted steps")
+    if args.trace:
+        print(tracing.table(tracing.summary()))
     return res
 
 

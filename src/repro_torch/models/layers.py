@@ -19,6 +19,7 @@ import itertools
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..kernels import ops
 
 
@@ -187,12 +188,13 @@ def mlp_block(cfg, p, x):
 # -- standard transformer block (attn [+ local window] + MLP) ------------------
 
 def attn_layer(cfg, p, x, *, positions, cache=None, mode="train", window=0):
-    h, cache = attention_block(cfg, p["attn"],
-                               rms_norm(x, p["ln1"]["scale"], cfg.norm_eps),
-                               positions=positions, cache=cache, mode=mode,
-                               window=window)
-    x = x + h
+    with tracing.span("block.attention"):
+        h, cache = attention_block(
+            cfg, p["attn"], rms_norm(x, p["ln1"]["scale"], cfg.norm_eps),
+            positions=positions, cache=cache, mode=mode, window=window)
+        x = x + h
     if cfg.d_ff:
-        x = x + mlp_block(cfg, p["mlp"],
-                          rms_norm(x, p["ln2"]["scale"], cfg.norm_eps))
+        with tracing.span("block.mlp"):
+            x = x + mlp_block(cfg, p["mlp"],
+                              rms_norm(x, p["ln2"]["scale"], cfg.norm_eps))
     return x, cache

@@ -37,6 +37,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import tracing
 from ..device import resolve_device
 from . import layers as L
 from . import moe as M
@@ -54,6 +55,13 @@ BLOCKS = {
     "mlstm": (X.mlstm_layer, lambda cfg: 0),
     "slstm": (X.slstm_layer, lambda cfg: 0),
 }
+BLOCK_SPANS = {kind: "block." + kind for kind in BLOCKS}
+
+
+def _block(kind, cfg, p, x, **kw):
+    """One layer of ``kind`` under its span."""
+    with tracing.span(BLOCK_SPANS[kind]):
+        return BLOCKS[kind][0](cfg, p, x, **kw)
 
 
 def layer_kinds(cfg) -> list[str]:
@@ -152,12 +160,13 @@ class Model(nn.Module):
         cfg = self.cfg
         if (tokens is None) == (embeds is None):
             raise ValueError("give exactly one of tokens and embeds")
-        if tokens is not None:
-            B, S = tokens.shape
-            x = L.embed(self.embed, tokens, cfg)
-        else:
-            B, S = embeds.shape[:2]
-            x = embeds.to(L.cdt(cfg))
+        with tracing.span("model.embed"):
+            if tokens is not None:
+                B, S = tokens.shape
+                x = L.embed(self.embed, tokens, cfg)
+            else:
+                B, S = embeds.shape[:2]
+                x = embeds.to(L.cdt(cfg))
         if positions is None:
             t0 = cache["t"] if cache is not None else 0
             positions = (t0 + torch.arange(S, dtype=torch.int32,
@@ -166,22 +175,24 @@ class Model(nn.Module):
                 positions = positions.expand(3, B, S)
         remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
-            apply, window = BLOCKS[kind]
+            window = BLOCKS[kind][1](cfg)
             if remat:
-                # keep only the layer's input; the backward reruns it
+                # keep only the layer's input; the backward reruns it (and
+                # its spans)
                 x = torch.utils.checkpoint.checkpoint(
-                    lambda x, apply=apply, p=p, w=window(cfg): apply(
-                        cfg, p, x, positions=positions, mode=mode,
+                    lambda x, kind=kind, p=p, w=window: _block(
+                        kind, cfg, p, x, positions=positions, mode=mode,
                         window=w)[0],
                     x, use_reentrant=False)
                 continue
-            x, _ = apply(cfg, p, x, positions=positions,
-                         cache=None if cache is None else cache["layers"][i],
-                         mode=mode, window=window(cfg))
-        if last_only:
-            x = x[:, -1:]
-        x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
-        logits = L.unembed(self.lm_head, self.embed, x, cfg)
+            x, _ = _block(kind, cfg, p, x, positions=positions,
+                          cache=None if cache is None else cache["layers"][i],
+                          mode=mode, window=window)
+        with tracing.span("model.unembed"):
+            if last_only:
+                x = x[:, -1:]
+            x = L.rms_norm(x, self.final_norm, cfg.norm_eps)
+            logits = L.unembed(self.lm_head, self.embed, x, cfg)
         if cache is not None:
             cache["t"] += S
         return logits, cache
@@ -238,15 +249,16 @@ def lm_loss(model, batch):
     scalars."""
     logits, _ = model(batch.get("tokens"), embeds=batch.get("embeds"),
                       positions=batch.get("positions"), mode="train")
-    logz, gold = _LogZGold.apply(logits, batch["labels"])
-    nll = logz - gold
-    mask = batch.get("mask")
-    if mask is None:
-        mask = torch.ones_like(nll)
-    denom = torch.clamp(torch.sum(mask), min=1.0)
-    loss = torch.sum(nll * mask) / denom
-    # z-loss keeps logits bounded on long runs (Chowdhery et al.)
-    zloss = 1e-4 * torch.sum((logz * mask) ** 2) / denom
+    with tracing.span("model.loss"):
+        logz, gold = _LogZGold.apply(logits, batch["labels"])
+        nll = logz - gold
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones_like(nll)
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+        loss = torch.sum(nll * mask) / denom
+        # z-loss keeps logits bounded on long runs (Chowdhery et al.)
+        zloss = 1e-4 * torch.sum((logz * mask) ** 2) / denom
     return loss + zloss, {"nll": loss, "zloss": zloss}
 
 
