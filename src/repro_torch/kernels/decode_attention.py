@@ -8,11 +8,16 @@ is laid out are written at the top of that file).  A CPU tensor goes to
 :func:`decode_attention_plain`; a CUDA tensor goes to the kernel, which is
 built at first use, or the call raises.  ``decode_attention.launches``
 counts the kernel launches made (one a call: the split over the cache and
-the combine run in the same launch).  The wrapper allocates the kernel's
-scratch: the chunks' partial sums (``torch.empty``, per call) and one
-int32 counter per (b, kv head), zeroed once per device and left zero by
-every launch (the last block of each group resets its counter), so a
-captured CUDA graph replays on clean counters.
+the combine run in the same launch); a CUDA graph that captured a call
+launches the kernel again at each replay without passing through the
+wrapper, and the code that replays it adds those launches
+(``ops.count_launches``).  The wrapper allocates
+the kernel's scratch: the chunks' partial sums (``torch.empty``, per call)
+and one int32 counter per (b, kv head), zeroed once per device and left
+zero by every launch (the last block of each group resets its counter),
+so a captured CUDA graph replays on clean counters.  A counter buffer
+outgrown by a larger batch is kept, not freed: a graph may still hold its
+address.
 
 :func:`decode_attention_plain` is the counterpart of
 ``repro.kernels.ref.decode_attention``: float32 throughout, invalid cache
@@ -39,6 +44,7 @@ from .flash_attention import DTYPES, HEAD_DIMS, NEG_INF
 MAX_GROUP = 16                      # query heads per kv head: the 16 rows
                                     # of the kernel's mma tile
 _COUNTERS: dict = {}                # device -> zeroed int32 counters
+_OUTGROWN: list = []                # counters replaced by larger ones
 
 
 def _check(q, k_cache, v_cache, lengths):
@@ -100,6 +106,8 @@ def _counters(dev, n: int):
     kernel leaves them zero."""
     buf = _COUNTERS.get(dev)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = _COUNTERS[dev] = torch.zeros(n, dtype=torch.int32, device=dev)
     return buf
 

@@ -20,6 +20,12 @@ version, and any other device raises.  So there is no ``impl=`` knob, and
         autograd records it goes through ``LinearRecurrence``: the forward
         kernel, which then also keeps its float32 states, then the
         backward kernel; otherwise (serving, decode) the forward alone.
+
+Each kernel wrapper counts its launches (``launches``, and
+``launches_by_kernel`` where it splits them).  A CUDA graph replays the
+kernels it captured without passing through the wrappers, so whoever
+replays one counts its launches: ``launch_counts`` before the capture,
+``launches_since`` after it, and ``count_launches`` at each replay.
 """
 from __future__ import annotations
 
@@ -29,6 +35,33 @@ from .decode_attention import decode_attention
 from .flash_attention import FlashAttention, flash_attention
 from .rglru_scan import LinearRecurrence
 from .rglru_scan import linear_recurrence as _linear_recurrence
+
+
+# the wrappers the models call, whose launches a graph's replay repeats
+COUNTED = (flash_attention, decode_attention, _linear_recurrence)
+
+
+def launch_counts():
+    """Each counted wrapper's launches and launches by kernel, now."""
+    return {fn: (fn.launches, dict(getattr(fn, "launches_by_kernel", {})))
+            for fn in COUNTED}
+
+
+def launches_since(before):
+    """What each counted wrapper launched since ``before`` (a
+    ``launch_counts``), in the same form."""
+    return {fn: (n - before[fn][0],
+                 {k: m - before[fn][1].get(k, 0) for k, m in by.items()})
+            for fn, (n, by) in launch_counts().items()}
+
+
+def count_launches(grew):
+    """Add ``grew`` (a ``launches_since``) to the wrappers' counts: the
+    launches of one replay of the graph whose capture made them."""
+    for fn, (n, by) in grew.items():
+        fn.launches += n
+        for k, m in by.items():
+            fn.launches_by_kernel[k] = fn.launches_by_kernel.get(k, 0) + m
 
 
 def _records(*xs):

@@ -11,9 +11,12 @@ are XLA's and have no counterpart.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from .. import sharding, tracing
+from ..kernels import ops
 from ..models import transformer as T
 from ..optim import adamw_update, cosine_schedule
 
@@ -145,16 +148,129 @@ def make_prefill_step(cfg):
     return prefill
 
 
+def _capturable(model, batch) -> bool:
+    """Whether the decode step of ``batch`` may be captured: on CUDA, from
+    tokens at the default positions, through capturable layers only."""
+    return (model.device.type == "cuda" and batch.get("embeds") is None
+            and batch.get("tokens") is not None
+            and batch.get("positions") is None
+            and set(model.kinds) <= T.CAPTURABLE)
+
+
+def _decode(model, cache, batch, t=None):
+    logits, _ = model.decode_step(
+        batch.get("tokens"), cache, embeds=batch.get("embeds"),
+        positions=batch.get("positions"), t=t)
+    # greedy next token inside the step, as repro keeps it in-graph
+    return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+
+class DecodeGraph:
+    """The decode step of one cache storage as one CUDA graph.
+
+    Keyed on the model, its config and the cache's storage (its tensors'
+    addresses and shapes) and the tokens' shape.  A new key releases the
+    previous graph and its memory pool.  For a new model or tokens' shape
+    the first step runs eagerly on the capture stream (which builds what
+    is made lazily, such as cuBLAS's workspace for that stream and the
+    decode kernel's counters, outside the capture) and the second is
+    captured and replayed; a new storage alone is captured at its first
+    step.  Later steps copy the tokens and the position into the graph's
+    inputs and replay it.  A model hands its next cache the storage of its
+    last one (``Model.init_cache`` on CUDA), so the batches of one model
+    replay one graph until a longer batch grows the storage.  The host's position
+    counts advance as the eager forward advances them, and the kernel
+    wrappers' launch counts by what the capture launched.  Each step
+    returns fresh tensors: a caller keeps every step's token.  The graph
+    holds the weights' addresses: a model's parameters are not replaced
+    while it decodes."""
+
+    def __init__(self):
+        self.key = self.graph = self.stream = None
+        self.tokens = self.t = self.logits = self.next = None
+        self.launched = None
+
+    def release(self):
+        self.key = self.graph = None
+        self.tokens = self.t = self.logits = self.next = None
+        self.launched = None
+
+    def step(self, model, cache, tokens):
+        key = (weakref.ref(model), id(model.cfg), tokens.shape, tokens.dtype,
+               tuple((c["k"].data_ptr(), c["v"].data_ptr(), c["k"].shape)
+                     for c in cache["layers"]))
+        if key != self.key:
+            # a new storage of the same model and tokens' shape is
+            # captured at once; a new model or shape first runs eagerly
+            warm = self.key is not None and key[:4] == self.key[:4]
+            self.release()
+            self.key = key
+            if not warm:
+                with tracing.span("decode.eager"):
+                    return self._eager(model, cache, tokens)
+        if self.graph is None:
+            with tracing.span("decode.capture"):
+                self._capture(model, cache, tokens)
+                self.graph.replay()
+        else:
+            with tracing.span("decode.replay"):
+                self.tokens.copy_(tokens)
+                self.t.fill_(cache["t"])
+                self.graph.replay()
+                ops.count_launches(self.launched)
+                for c in cache["layers"]:
+                    c["pos"] += 1
+                cache["t"] += 1
+        return self.logits.clone(), self.next.clone()
+
+    def _eager(self, model, cache, tokens):
+        dev = model.device
+        main = torch.cuda.current_stream(dev)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+        self.stream.wait_stream(main)
+        with torch.cuda.stream(self.stream):
+            out = _decode(model, cache, {"tokens": tokens})
+        main.wait_stream(self.stream)
+        for x in out:
+            x.record_stream(main)
+        return out
+
+    def _capture(self, model, cache, tokens):
+        self.tokens = tokens.clone()
+        # the position's scalar, filled from the host's count before each
+        # replay (one fill, no sync)
+        self.t = torch.full((), cache["t"], dtype=torch.int32,
+                            device=model.device)
+        self.graph = torch.cuda.CUDAGraph()
+        # the capture advances the host's counts once, for this step (the
+        # replay that follows it makes the launches it counted)
+        before = ops.launch_counts()
+        with torch.cuda.graph(self.graph, stream=self.stream):
+            self.logits, self.next = _decode(model, cache,
+                                             {"tokens": self.tokens}, self.t)
+        self.launched = ops.launches_since(before)
+
+
 def make_decode_step(cfg):
+    """The greedy decode step: ``decode(model, cache, batch)`` returns the
+    logits, the next token and the cache.  Where ``_capturable`` holds, a
+    ``DecodeGraph`` (``decode.graph``; one live graph a step function)
+    replays it; elsewhere every step runs eagerly.  The child spans
+    ``decode.eager``, ``decode.capture`` and ``decode.replay`` of
+    ``step.decode`` count which."""
+    graph = DecodeGraph()
+
     def decode(model, cache, batch):
         # the host's issue of the step: nothing in it waits for the card
         with tracing.span("step.decode", device=model.device,
                           tokens=_positions(batch)):
-            logits, cache = model.decode_step(
-                batch.get("tokens"), cache, embeds=batch.get("embeds"),
-                positions=batch.get("positions"))
-            # greedy next token inside the step, as repro keeps it in-graph
-            next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            if _capturable(model, batch):
+                logits, next_tok = graph.step(model, cache, batch["tokens"])
+            else:
+                with tracing.span("decode.eager"):
+                    logits, next_tok = _decode(model, cache, batch)
         return logits, next_tok, cache
 
+    decode.graph = graph
     return decode

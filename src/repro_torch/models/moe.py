@@ -220,11 +220,12 @@ def aux_load_balance_loss(cfg, x, p):
     return cfg.n_experts * torch.sum(frac * probs.mean(0))
 
 
-def moe_layer(cfg, p, x, *, positions, cache=None, mode="train", window=0):
+def moe_layer(cfg, p, x, *, positions, cache=None, mode="train", window=0,
+              at=None):
     h, cache = attention_block(cfg, p["attn"],
                                rms_norm(x, p["ln1"]["scale"], cfg.norm_eps),
                                positions=positions, cache=cache, mode=mode,
-                               window=window)
+                               window=window, at=at)
     x = x + h
     x = x + moe_mlp(cfg, p["moe"],
                     rms_norm(x, p["ln2"]["scale"], cfg.norm_eps))

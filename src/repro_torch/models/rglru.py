@@ -74,9 +74,10 @@ def rglru_core(cfg, p, u, h0=None):
 
 
 def rglru_layer(cfg, p, x, *, positions=None, cache=None, mode="train",
-                window=0):
+                window=0, at=None):
     """The recurrent block: norm -> (gate branch || conv + RG-LRU branch)
-    -> out-proj -> + residual -> MLP."""
+    -> out-proj -> + residual -> MLP.  Its state needs no position
+    (``positions`` and decode's ``at`` are not read)."""
     dt = cdt(cfg)
     h_in = rms_norm(x, p["ln1"]["scale"], cfg.norm_eps)
     # jax.nn.gelu defaults to the tanh approximation; torch's to erf

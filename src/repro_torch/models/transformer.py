@@ -33,6 +33,8 @@ backward once.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -76,6 +78,26 @@ def layer_kinds(cfg) -> list[str]:
     return kinds
 
 
+class Cache(dict):
+    """A prefill/decode cache, ``{"layers": [...], "t": int}``: a dict the
+    model that made it refers to weakly, to know when it is gone."""
+    __slots__ = ("__weakref__",)
+
+
+# Block kinds whose decode step a CUDA graph holds (``launch/steps.py``):
+# their caches are written at a slot derived on the device from the
+# position scalar.  The others (MoE routing, the recurrent states that
+# xLSTM replaces) decode eagerly.
+CAPTURABLE = frozenset({"attn", "local_attn"})
+
+
+def _keeps_storage(dev, kinds) -> bool:
+    """Whether a model of layer ``kinds`` on ``dev`` hands its next cache
+    the storage of its last: where its decode step's graph, keyed on that
+    storage, may engage."""
+    return dev.type == "cuda" and set(kinds) <= CAPTURABLE
+
+
 class _Tree(nn.Module):
     """A nested dictionary of tensors as a module: ``p["attn"]["wq"]``
     reads the same parameter as in ``repro``'s pytree."""
@@ -108,6 +130,9 @@ class Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.kinds = layer_kinds(cfg)
+        # the attention storage of the last cache (layer -> (k, v)), and
+        # that cache, weakly (``init_cache``)
+        self._kept, self._lent = {}, None
         if len(params["layers"]) != cfg.n_layers:
             raise ValueError(f"{len(params['layers'])} layers for a "
                              f"{cfg.n_layers}-layer config")
@@ -133,30 +158,79 @@ class Model(nn.Module):
         """Prefill/decode cache: one entry per layer and the next
         position ``t``.  Attention and MoE layers hold ``max_len`` slots,
         windowed layers ``min(max_len, window)``; the recurrent layers
-        (RG-LRU, mLSTM, sLSTM) their states."""
+        (RG-LRU, mLSTM, sLSTM) their states.
+
+        On CUDA, a model of ``CAPTURABLE`` layers only gives a new cache
+        the storage of its last once that cache is gone, zeroed, where it
+        fits: the same batch, at least ``max_len`` slots in an unwindowed
+        layer (only the first ``t`` are read), the same size in a windowed
+        one.  Where it does not, the old storage is freed and storage of
+        the sizes asked for taken.  The decode
+        step's CUDA graph is keyed on that storage
+        (``launch/steps.py::DecodeGraph``), so one model's batches replay
+        one graph.  A cache still referenced gets storage of its own."""
         cfg, dev = self.cfg, self.device
         recurrent = {"rglru": R.init_rglru_cache,
                      "mlstm": X.init_mlstm_cache,
                      "slstm": X.init_slstm_cache}
-        caches = []
-        for kind in self.kinds:
-            if kind in recurrent:
-                caches.append(recurrent[kind](cfg, batch, device=dev))
-            else:
-                size = max_len
-                if kind == "local_attn" and cfg.window:
-                    size = min(max_len, cfg.window)
-                caches.append(L.init_kv_cache(cfg, batch, size, device=dev))
-        return {"layers": caches, "t": 0}
+        sizes = [None if kind in recurrent
+                 else min(max_len, cfg.window) if self._windowed(kind)
+                 else max_len for kind in self.kinds]
+        if _keeps_storage(dev, self.kinds) and (self._lent is None
+                                                or self._lent() is None):
+            return self._kept_cache(batch, sizes)
+        return Cache(layers=[
+            recurrent[kind](cfg, batch, device=dev) if size is None
+            else L.init_kv_cache(cfg, batch, size, device=dev)
+            for kind, size in zip(self.kinds, sizes)], t=0)
+
+    def _windowed(self, kind) -> bool:
+        return kind == "local_attn" and bool(self.cfg.window)
+
+    def _kept_cache(self, batch, sizes):
+        """A cache on the kept attention storage of ``sizes`` slots a
+        layer (``init_cache``), zeroed, or on new storage where the kept
+        one does not fit."""
+        kept = self._kept
+
+        def fits(i, size):
+            k = kept[i][0]
+            return k.shape[0] == batch and (
+                k.shape[1] == size if self._windowed(self.kinds[i])
+                else k.shape[1] >= size)
+
+        if kept and all(fits(i, size) for i, size in enumerate(sizes)):
+            for k, v in kept.values():
+                k.zero_()
+                v.zero_()
+        else:
+            if kept:
+                kept.clear()
+                # the old storage goes back to the card before the new is
+                # taken: the allocator would otherwise hold it in its cache
+                # until an allocation fails, then free it and retry
+                torch.cuda.empty_cache()
+            for i, size in enumerate(sizes):
+                c = L.init_kv_cache(self.cfg, batch, size, device=self.device)
+                kept[i] = (c["k"], c["v"])
+        cache = Cache(layers=[{"k": k, "v": v, "pos": 0}
+                              for k, v in kept.values()], t=0)
+        self._lent = weakref.ref(cache)
+        return cache
 
     def forward(self, tokens=None, *, embeds=None, positions=None,
-                cache=None, mode: str = "train", last_only: bool = False):
+                cache=None, mode: str = "train", last_only: bool = False,
+                t=None):
         """Exactly one of ``tokens`` (B, S) int, looked up in the embedding
         table, and ``embeds`` (B, S, d_model), cast to the compute dtype
         as ``repro`` casts them.  ``positions``: (B, S) int, or (3, B, S)
         under M-RoPE; by default they count on from the cache's ``t``, the
-        same in all three streams.  Returns (logits, cache);
-        ``last_only`` unembeds the last position only (B, 1, vocab)."""
+        same in all three streams.  Decode takes that position as ``t``,
+        an int32 device scalar (by default filled from the cache's ``t``),
+        from which the layers derive theirs on the device
+        (``layers.DecodeAt``); RoPE's tables are computed once for every
+        layer (``layers.rotary``).  Returns (logits, cache); ``last_only``
+        unembeds the last position only (B, 1, vocab)."""
         cfg = self.cfg
         if (tokens is None) == (embeds is None):
             raise ValueError("give exactly one of tokens and embeds")
@@ -167,12 +241,23 @@ class Model(nn.Module):
             else:
                 B, S = embeds.shape[:2]
                 x = embeds.to(L.cdt(cfg))
+        at = None
+        if mode == "decode":
+            if t is None:
+                t = torch.full((), cache["t"], dtype=torch.int32,
+                               device=x.device)
+            at = L.DecodeAt(t)
         if positions is None:
-            t0 = cache["t"] if cache is not None else 0
+            if mode == "decode":
+                t0 = t
+            else:
+                t0 = cache["t"] if cache is not None else 0
             positions = (t0 + torch.arange(S, dtype=torch.int32,
                                            device=x.device)).expand(B, S)
             if cfg.pos_type == "mrope":
                 positions = positions.expand(3, B, S)
+        # RoPE's tables once for every layer (None without rotation)
+        positions = L.rotary(cfg, positions, x.device)
         remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
         for i, (kind, p) in enumerate(zip(self.kinds, self.layers)):
             window = BLOCKS[kind][1](cfg)
@@ -187,7 +272,7 @@ class Model(nn.Module):
                 continue
             x, _ = _block(kind, cfg, p, x, positions=positions,
                           cache=None if cache is None else cache["layers"][i],
-                          mode=mode, window=window)
+                          mode=mode, window=window, at=at)
         with tracing.span("model.unembed"):
             if last_only:
                 x = x[:, -1:]
@@ -207,11 +292,12 @@ class Model(nn.Module):
                             cache=cache, mode="prefill", last_only=True)
 
     def decode_step(self, tokens=None, cache=None, *, embeds=None,
-                    positions=None):
+                    positions=None, t=None):
         """One new token (B, 1), or one embedding (B, 1, d_model), against
-        the cache."""
+        the cache, at the position ``t`` (an int32 device scalar; by
+        default filled from the cache's ``t``)."""
         return self.forward(tokens, embeds=embeds, positions=positions,
-                            cache=cache, mode="decode")
+                            cache=cache, mode="decode", t=t)
 
 
 class _LogZGold(torch.autograd.Function):

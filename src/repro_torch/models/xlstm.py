@@ -20,7 +20,8 @@ tied elements, as JAX's ``maximum`` and ``max`` do.
 
 Caches are dictionaries updated in place: mLSTM (C, n, m) in float32
 (B, H, D, D) / (B, H, D) / (B, H), m starting at -1e30; sLSTM (h, c, n, m)
-(B, d) in float32.  ``pos`` is a Python int.
+(B, d) in float32.  ``pos`` is a Python int.  The blocks need no position:
+``positions`` and decode's device position ``at`` are not read.
 """
 from __future__ import annotations
 
@@ -173,7 +174,7 @@ def _mlstm_gates(p, h, dt):
 
 
 def mlstm_layer(cfg, p, x, *, positions=None, cache=None, mode="train",
-                window=0):
+                window=0, at=None):
     """The mLSTM block: x + down(cell(q, k, v) * silu(gate branch)).
     ``mode`` "train" (no cache), "prefill" (the chunkwise form; its final
     state goes into ``cache`` when one is given) or "decode" (S == 1, the
@@ -248,7 +249,7 @@ def slstm_scan(pre, w_rec, bias, state):
 
 
 def slstm_layer(cfg, p, x, *, positions=None, cache=None, mode="train",
-                window=0):
+                window=0, at=None):
     """The sLSTM block: x + down(scan(x W_in)).  The scan, ``w_rec`` and
     ``bias`` are float32.  Only decode starts from the cache's state (a
     prefill starts from zeros, as ``repro``'s does); prefill and decode

@@ -27,6 +27,8 @@ from repro.models import layers as JL
 from repro.models import rglru as JR
 from repro.models import transformer as JT
 from repro_torch import configs as TC
+from repro_torch.kernels import ops as TO
+from repro_torch.launch import steps as TSTEP
 from repro_torch.models import layers as TL
 from repro_torch.models import rglru as TR
 from repro_torch.models import transformer as TT
@@ -160,17 +162,20 @@ def test_attention_block_prefill_and_decode_through_the_ring():
     j_decode = _jit(JL.attention_block, cfg, mode="decode", window=win)
     jo, jc = j_prefill(p_np, jnp.asarray(x[:, :S]),
                        positions=jnp.asarray(pos), cache=jc)
-    to, tc = TL.attention_block(tcfg, p_t, torch.as_tensor(x[:, :S]),
-                                positions=torch.as_tensor(pos), cache=tc,
-                                mode="prefill", window=win)
+    to, tc = TL.attention_block(
+        tcfg, p_t, torch.as_tensor(x[:, :S]),
+        positions=TL.rotary(tcfg, torch.as_tensor(pos), "cpu"), cache=tc,
+        mode="prefill", window=win)
     _close(to, jo, F32_TOL)
     for t in range(S, S + n_dec):
         pos = np.full((B, 1), t, np.int32)
         jo, jc = j_decode(p_np, jnp.asarray(x[:, t:t + 1]),
                           positions=jnp.asarray(pos), cache=jc)
-        to, tc = TL.attention_block(tcfg, p_t, torch.as_tensor(x[:, t:t + 1]),
-                                    positions=torch.as_tensor(pos), cache=tc,
-                                    mode="decode", window=win)
+        to, tc = TL.attention_block(
+            tcfg, p_t, torch.as_tensor(x[:, t:t + 1]),
+            positions=TL.rotary(tcfg, torch.as_tensor(pos), "cpu"),
+            cache=tc, mode="decode", window=win,
+            at=TL.DecodeAt(torch.tensor(t, dtype=torch.int32)))
         _close(to, jo, F32_TOL)
     _close(tc["k"], jc["k"], F32_TOL)
     _close(tc["v"], jc["v"], F32_TOL)
@@ -312,3 +317,108 @@ def test_init_draws_the_reference_shapes():
     assert sum(v.numel() for v in model.state_dict().values()) \
         == tcfg.param_count()
     assert round(TC.get("recurrentgemma-2b").param_count() / 1e9, 2) == 2.66
+
+
+def _python_int_block(real):
+    """``attention_block`` with decode as the port wrote it while the
+    position lived on the host only: the slot and the valid length from
+    the cache's Python int ``pos``, the slot written by slice assignment,
+    the lengths filled from the host.  Other modes go to ``real``."""
+    def block(cfg, p, x, *, positions, cache=None, mode="train", window=0,
+              at=None):
+        if mode != "decode":
+            return real(cfg, p, x, positions=positions, cache=cache,
+                        mode=mode, window=window)
+        B, S, _ = x.shape
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        dt = TL.cdt(cfg)
+        q = (x @ p["wq"].to(dt)).view(B, S, H, hd)
+        k = (x @ p["wk"].to(dt)).view(B, S, KV, hd)
+        v = (x @ p["wv"].to(dt)).view(B, S, KV, hd)
+        q, k = TL._rope_qk(positions, q, k)
+        pos, size = cache["pos"], cache["k"].shape[1]
+        slot = pos % size if window > 0 else min(pos, size - 1)
+        cache["k"][:, slot] = k[:, 0]
+        cache["v"][:, slot] = v[:, 0]
+        lengths = torch.full((B,), min(pos + 1, size), dtype=torch.int32)
+        out = TO.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+        cache["pos"] = pos + 1
+        return out[:, None].reshape(B, S, H * hd) @ p["wo"].to(dt), cache
+    return block
+
+
+@pytest.mark.parametrize("arch,S,n_dec", [
+    ("llama3.2-1b", 10, 14),          # RoPE attention
+    ("recurrentgemma-2b", 32, 20),    # a ring of 16 slots, wrapped at 48
+    ("qwen2-vl-2b", 12, 12),          # M-RoPE at the default positions
+])
+def test_device_held_decode_position_matches_the_host_ints(arch, S, n_dec,
+                                                           monkeypatch):
+    """The decode step, its position an int32 device scalar from which the
+    layers derive slot, length and RoPE positions, gives the logits of the
+    host-int decode bit for bit at every step, and ``repro``'s decode
+    within F32_TOL."""
+    cfg, tcfg = _cfg(arch)
+    params_np = _jax_params(cfg)
+    model = TW.from_jax_params(tcfg, params_np, device="cpu")
+    B = 2
+    toks = torch.as_tensor(_tokens(cfg, B, S + n_dec))
+    prefill = TSTEP.make_prefill_step(tcfg)
+    decode = TSTEP.make_decode_step(tcfg)
+
+    def run(step):
+        cache = model.init_cache(B, S + n_dec)
+        prefill(model, cache, {"tokens": toks[:, :S]})
+        return [step(cache, t, toks[:, t:t + 1])
+                for t in range(S, S + n_dec)], cache
+
+    got, cache = run(lambda c, t, x: decode(model, c, {"tokens": x})[0])
+    assert cache["t"] == S + n_dec
+    assert {c["pos"] for c in cache["layers"] if "k" in c} == {S + n_dec}
+
+    def host(c, t, x):
+        pos = torch.full((B, 1), t, dtype=torch.int32)
+        if tcfg.pos_type == "mrope":
+            pos = pos.expand(3, B, 1)
+        return model.decode_step(x, c, positions=pos)[0]
+
+    with monkeypatch.context() as m:
+        m.setattr(TL, "attention_block", _python_int_block(TL.attention_block))
+        want, _ = run(host)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+
+    jcache = JT.init_cache(cfg, B, S + n_dec)
+    _, jcache = _jit(JT.prefill_step, cfg)(
+        params_np, jnp.asarray(toks[:, :S].numpy(), jnp.int32), cache=jcache)
+    j_decode = _jit(JT.decode_step, cfg)
+    for t, a in zip(range(S, S + n_dec), got):
+        jdec, jcache = j_decode(params_np, jnp.asarray(
+            toks[:, t:t + 1].numpy(), jnp.int32), cache=jcache)
+        _close(a, jdec, F32_TOL)
+
+
+def test_decode_after_a_host_reset_starts_at_position_zero():
+    """A cache zeroed and set back to position 0 on the host (its ``t``
+    and every layer's ``pos`` Python ints, as the benchmark's serve faults
+    leave it) decodes as a fresh cache does, from position 0."""
+    cfg, tcfg = _cfg("llama3.2-1b")
+    model = TW.from_jax_params(tcfg, _jax_params(cfg), device="cpu")
+    toks = torch.as_tensor(_tokens(cfg, 2, 12))
+    decode = TSTEP.make_decode_step(tcfg)
+    used = model.init_cache(2, 16)
+    TSTEP.make_prefill_step(tcfg)(model, used, {"tokens": toks[:, :8]})
+    decode(model, used, {"tokens": toks[:, 8:9]})
+    for layer in used["layers"]:
+        layer["k"].zero_()
+        layer["v"].zero_()
+        layer["pos"] = 0
+    used["t"] = 0
+    fresh = model.init_cache(2, 16)
+    for i in range(4):
+        a = decode(model, used, {"tokens": toks[:, i:i + 1]})[0]
+        b = decode(model, fresh, {"tokens": toks[:, i:i + 1]})[0]
+        assert torch.equal(a, b), i
+    assert used["t"] == fresh["t"] == 4
+    for a, b in zip(used["layers"], fresh["layers"]):
+        assert torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"])

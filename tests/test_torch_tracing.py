@@ -139,6 +139,7 @@ def test_serving_spans_share_their_batch_unit(mode):
     L, passes = cfg.n_layers, 2 * (1 + N_DECODE)
     assert _counts(record) == {
         "step.prefill": 2, "step.decode": 2 * N_DECODE,
+        "decode.eager": 2 * N_DECODE,
         "model.embed": passes, "model.unembed": passes,
         "block.attn": L * passes, "block.attention": L * passes,
         "block.mlp": L * passes}
@@ -148,6 +149,9 @@ def test_serving_spans_share_their_batch_unit(mode):
     for s in record:
         if s.name == "step.decode":
             assert s.parent is None and s.tokens == B
+        if s.name == "decode.eager":
+            # off CUDA every step runs eagerly, never from a graph
+            assert s.parent.name == "step.decode"
         # every span of a batch carries its prefill's unit
         batch = prefills[1] if s.start_ns >= prefills[1].start_ns \
             else prefills[0]
