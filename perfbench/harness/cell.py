@@ -7,8 +7,10 @@ its own, found by the name in ``BENCHMARK.json``:
 - ``perfbench/configs/<config>.json``: the sizes under the source's key
   names; its ``reference`` names the plain reference,
   ``perfbench/reference/<reference>.py``, which reads the file
-  (``Dims.from_file``), states the program's configuration fields
-  (``program_fields``) and computes the reference's answers;
+  (``Dims.from_file``), declares every leaf of the program's parameter
+  tree and its draw (``Dims.groups``), states the program's configuration
+  fields (``program_fields``), counts a training batch's model FLOPs
+  (``train_batch_flops``) and computes the reference's answers;
 - ``perfbench/traffic/<mix>.json``: parameters; its ``loop`` names the
   loop that drives the program (``train`` or ``serve``) and its
   ``generator`` the general generator, ``perfbench/generators/<name>.py``,

@@ -1,17 +1,23 @@
 """Weights and inputs drawn from ``--seed`` on the device.
 
-Every draw has a generator of its own, seeded by a hash of the run's seed
-and the draw's name, so a piece (one layer, one batch) can be drawn again
-alone, to the bit, for the reference after the window.  A layer's matrices
-come from one call (float32 normals times the configuration's
-``init_std``, the port's and ``repro``'s initialisation), the embedding
-table and the head from one call each; norm scales are ones.
+A configuration's reference module declares every leaf of the program's
+parameter tree (``Dims.groups()``): its dotted name, its shape and how it
+is drawn, normals times a std that the configuration file states or ones
+(a norm's scale).  Leaves sit in draw groups.  A group has a generator of
+its own, seeded by a hash of the run's seed and the group's tags, and
+draws its normal leaves in one call, sliced in their declared order; so
+any group (one decoder layer, one tower block, the embedding table) can
+be drawn again alone, to the bit, for the reference after the window.
+The declaration's types, ``Leaf`` and ``Group``, are in
+``perfbench/reference/leaves.py``.
 """
 from __future__ import annotations
 
 import hashlib
 
 import torch
+
+from perfbench.reference.leaves import Group
 
 
 def derive(seed: int, *tags) -> int:
@@ -25,47 +31,44 @@ def generator(device, seed: int, *tags) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(derive(seed, *tags))
 
 
-def normal(dm, n: int, device, seed: int, *tags):
-    g = generator(device, seed, *tags)
-    return torch.randn(n, generator=g, device=device).mul_(dm.init_std)
-
-
-def layer(dm, i: int, seed: int, device) -> dict:
-    """Layer ``i``'s leaves, float32, under their short names: the
-    matrices of ``dm.layer_matrices()`` from one draw, the vectors of
-    ``dm.layer_vectors()`` ones."""
-    flat = normal(dm, dm.layer_matrix_params(), device, seed, "layer", i)
-    out = {name: torch.ones(dm.d, device=device)
-           for name in dm.layer_vectors()}
-    at = 0
-    for name, (a, b) in dm.layer_matrices():
-        out[name] = flat[at:at + a * b].view(a, b).clone()
-        at += a * b
+def draw_group(g: Group, seed: int, device) -> dict:
+    """The group's leaves, float32, under their names within the group, in
+    declared order: one draw of normals for all its normal leaves, each
+    slice times its leaf's std."""
+    n = sum(leaf.size for leaf in g.leaves if leaf.std is not None)
+    flat = (torch.randn(n, generator=generator(device, seed, *g.tags),
+                        device=device) if n else None)
+    out, at = {}, 0
+    for leaf in g.leaves:
+        if leaf.std is None:
+            out[leaf.name] = torch.ones(leaf.shape, device=device)
+            continue
+        out[leaf.name] = flat[at:at + leaf.size].view(leaf.shape).mul(
+            leaf.std)
+        at += leaf.size
     return out
 
 
-def embedding(dm, seed: int, device):
-    return normal(dm, dm.vocab * dm.d, device, seed, "embed").view(
-        dm.vocab, dm.d)
+def group(dm, tags: tuple, seed: int, device) -> dict:
+    """The draw group named ``tags`` alone, as :func:`draw_group` gives it
+    (the reference's blockwise passes draw each block again so)."""
+    g = next((g for g in dm.groups() if g.tags == tags), None)
+    if g is None:
+        raise KeyError(f"no draw group {tags!r}")
+    return draw_group(g, seed, device)
+
+
+def layer(dm, i: int, seed: int, device) -> dict:
+    """Decoder layer ``i``'s leaves under their short names."""
+    return group(dm, ("layer", i), seed, device)
 
 
 def leaves(dm, seed: int, device):
-    """(name, float32 tensor) of every leaf under the port's parameter
-    names (``embed``, ``final_norm``, ``lm_head``, ``layers.<i>.attn.wq``
-    ...), in that order, drawn one layer at a time."""
-    yield "embed", embedding(dm, seed, device)
-    yield "final_norm", torch.ones(dm.d, device=device)
-    if not dm.tied:
-        yield "lm_head", head(dm, seed, device)
-    for i in range(dm.layers):
-        for k, v in layer(dm, i, seed, device).items():
-            yield f"layers.{i}.{k}", v
-
-
-def head(dm, seed: int, device):
-    """The untied unembedding (d, vocab), float32."""
-    return normal(dm, dm.d * dm.vocab, device, seed, "lm_head").view(
-        dm.d, dm.vocab)
+    """(full dotted name, float32 tensor) of every leaf, group by group in
+    declared order, drawn one group at a time."""
+    for g in dm.groups():
+        for name, t in draw_group(g, seed, device).items():
+            yield g.prefix + name, t
 
 
 def weights(dm, seed: int, device, matrix_dtype=torch.float32) -> dict:

@@ -43,21 +43,27 @@ def model_config(c: dict, fields: dict):
 
 
 def nest(flat: dict) -> dict:
-    """The port's ``Model`` parameter tree from flat names."""
-    out = {"layers": []}
+    """The port's parameter tree from dotted names of any depth: each
+    part a key of a dict, or, where it is a whole number, an index into a
+    list (``layers.3.attn.wq``, ``vision.blocks.0.attn.qkv_b``)."""
+    out = {}
     for name, t in flat.items():
-        parts = name.split(".")
-        if parts[0] != "layers":
-            out[name] = t
-            continue
-        i = int(parts[1])
-        while len(out["layers"]) <= i:
-            out["layers"].append({})
-        node = out["layers"][i]
-        for p in parts[2:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = t
+        parts = [int(p) if p.isdigit() else p for p in name.split(".")]
+        node = out
+        for key, nxt in zip(parts, parts[1:]):
+            node = _child(node, key, [] if isinstance(nxt, int) else {})
+        _child(node, parts[-1], t)
     return out
+
+
+def _child(node, key, value):
+    """``node[key]``, set to ``value`` first where it is missing."""
+    if isinstance(node, list):
+        node.extend(None for _ in range(key + 1 - len(node)))
+        if node[key] is None:
+            node[key] = value
+        return node[key]
+    return node.setdefault(key, value)
 
 
 def model(cfg, flat: dict, trainable: bool):

@@ -119,11 +119,13 @@ def run(r):
         a = served[b][row, :shapes[b][1][row]].tolist()
         requests.append((feed.request(b, row, a), len(a)))
         answers.append(a)
-    embed = draw.embedding(dm, r.seed, dev)
-    head = embed.T if dm.tied else draw.head(dm, r.seed, dev)
+    embed = draw.group(dm, ("embed",), r.seed, dev)["embed"]
+    head = (embed.T if dm.tied else
+            draw.group(dm, ("lm_head",), r.seed, dev)["lm_head"])
+    final_norm = draw.group(dm, ("final_norm",), r.seed, dev)["final_norm"]
     logits = ref.serve_logits(
         dm, embed, lambda i: draw.layer(dm, i, r.seed, dev), head,
-        torch.ones(dm.d, device=dev), requests)
+        final_norm, requests)
     gaps = [compare.token_gaps(x, a) for x, a in zip(logits, answers)]
     # (prompt length, answer length, where and how wide its widest gap)
     r.work["gaps"] = [(shapes[b][0], len(a), g.index(max(g)), max(g))

@@ -12,7 +12,7 @@ from __future__ import annotations
 import math
 import time
 
-from . import compare, draw, program, yardstick
+from . import compare, draw, program
 from .trace import profile, span
 
 
@@ -22,6 +22,15 @@ def _change_norms(dm, model, seed, device) -> dict:
     params = dict(model.named_parameters())
     return {n: float((params[n].detach() - t).double().norm())
             for n, t in draw.leaves(dm, seed, device)}
+
+
+def window_flops(ref, dm, feed, first: int, steps: int):
+    """Model FLOPs of training steps ``first`` .. ``first + steps - 1``:
+    the sum of the reference module's ``train_batch_flops(dm, feed, i)``,
+    which counts batch i's from host-side facts that the mix's ``Feed``
+    gives (image grids, segment lengths) and never reads the card."""
+    return sum(ref.train_batch_flops(dm, feed, i)
+               for i in range(first, first + steps))
 
 
 def run(r):
@@ -76,8 +85,7 @@ def run(r):
     window_s = time.perf_counter() - t0
     tokens = steps * feed.tokens_per_step
     r.host.update(window_s=window_s, steps=steps, tokens=tokens,
-                  flops=steps * yardstick.train_step_flops(dm, feed.B,
-                                                           feed.S))
+                  flops=window_flops(ref, dm, feed, checked, steps))
     r.e2e["train_tokens_per_s"] = tokens / window_s
     r.attempted, r.failed = steps, bad
     if r.trace:

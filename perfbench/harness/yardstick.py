@@ -13,7 +13,10 @@ and P V), 12 D in training.  Remat's recomputation is not counted.
 ``flash_*_bound_s`` give a kernel's least time, the larger of its
 operations at the bf16 peak and each input byte read once and each output
 byte written once at the memory rate (``chip_smoke.py::with_bound`` and
-``flash_pair_times``'s counts).
+``flash_pair_times``'s counts).  The ``*_segments_*`` forms take any list
+of segments, each attending only within itself, causally or not (the
+images of a vision tower); B rows of one causal sequence of S are B
+segments of S.
 """
 from __future__ import annotations
 
@@ -60,17 +63,37 @@ def bound_s(ops: float, nbytes: float) -> float:
     return max(ops / PEAK_FLOPS, nbytes / PEAK_BYTES)
 
 
+def segment_pairs(lengths, causal: bool = True) -> int:
+    """Visible query-key pairs of segments of ``lengths``, each attending
+    only within itself: causally, or every query to every key."""
+    return sum(causal_pairs(n) if causal else n * n for n in lengths)
+
+
+def flash_fwd_segments_bound_s(lengths, H, KV, D, causal=True, elt=2,
+                               lse=False) -> float:
+    """Reads q, k, v; writes out (and, with ``lse``, its float32 row
+    log-sum-exp)."""
+    T = sum(lengths)
+    ops = 4 * D * segment_pairs(lengths, causal) * H
+    nbytes = (2 * T * H * D + 2 * T * KV * D) * elt
+    return bound_s(ops, nbytes + (4 * T * H if lse else 0))
+
+
+def flash_bwd_segments_bound_s(lengths, H, KV, D, causal=True,
+                               elt=2) -> float:
+    """Reads q, k, v, out, dout, lse; writes dq, dk, dv."""
+    T = sum(lengths)
+    ops = 10 * D * segment_pairs(lengths, causal) * H
+    nbytes = (4 * T * H * D + 4 * T * KV * D) * elt + 4 * T * H
+    return bound_s(ops, nbytes)
+
+
 def flash_fwd_bound_s(B, S, H, KV, D, elt=2, lse=False) -> float:
-    ops = 4 * D * causal_pairs(S) * B * H
-    nbytes = (2 * B * S * H * D + 2 * B * S * KV * D) * elt
-    return bound_s(ops, nbytes + (4 * B * S * H if lse else 0))
+    return flash_fwd_segments_bound_s([S] * B, H, KV, D, elt=elt, lse=lse)
 
 
 def flash_bwd_bound_s(B, S, H, KV, D, elt=2) -> float:
-    """Reads q, k, v, out, dout, lse; writes dq, dk, dv."""
-    ops = 10 * D * causal_pairs(S) * B * H
-    nbytes = (4 * B * S * H * D + 4 * B * S * KV * D) * elt + 4 * B * S * H
-    return bound_s(ops, nbytes)
+    return flash_bwd_segments_bound_s([S] * B, H, KV, D, elt=elt)
 
 
 def decode_attn_bound_s(B, H, KV, D, context, elt=2) -> float:

@@ -5,8 +5,10 @@ dense configuration file.
 A configuration file names its reference module (``"reference":
 "dense"``); the harness finds this file by that name and asks it for the
 sizes (``Dims.from_file``), for the fields of the program's configuration
-that the file fixes (``program_fields``), for each layer's matrices (the
-weights the benchmark draws) and for the reference's answers.
+that the file fixes (``program_fields``), for every leaf of the program's
+parameter tree and how it is drawn (``Dims.groups``), for a training
+batch's model FLOPs (``train_batch_flops``) and for the reference's
+answers.
 
 It follows the configuration file and the published descriptions:
 pre-norm RMS norm blocks, causal GQA attention with no bias, rotary
@@ -28,6 +30,9 @@ import math
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from perfbench.harness import yardstick
+from perfbench.reference.leaves import Group, Leaf
 
 SCORE_BLOCK = 1 << 28           # elements of one block of attention scores
 
@@ -92,8 +97,22 @@ class Dims:
                 ("mlp.gate", (d, f)), ("mlp.up", (d, f)),
                 ("mlp.down", (f, d))]
 
-    def layer_vectors(self) -> list[str]:
-        return ["ln1.scale", "ln2.scale"]
+    def groups(self) -> list[Group]:
+        """Every leaf of the program's tree, in draw groups: the embedding
+        table, the final norm's scale (ones), the untied head, then each
+        layer (its norm scales ones, its matrices one draw sliced in
+        ``layer_matrices`` order); normals of std ``init_std``."""
+        std, d = self.init_std, self.d
+        out = [Group(("embed",), "", (Leaf("embed", (self.vocab, d), std),)),
+               Group(("final_norm",), "", (Leaf("final_norm", (d,), None),))]
+        if not self.tied:
+            out.append(Group(("lm_head",), "",
+                             (Leaf("lm_head", (d, self.vocab), std),)))
+        block = (Leaf("ln1.scale", (d,), None), Leaf("ln2.scale", (d,), None),
+                 *(Leaf(n, s, std) for n, s in self.layer_matrices()))
+        out += [Group(("layer", i), f"layers.{i}.", block)
+                for i in range(self.layers)]
+        return out
 
     def layer_matrix_params(self) -> int:
         return sum(a * b for _, (a, b) in self.layer_matrices())
@@ -108,6 +127,12 @@ class Dims:
     def attention_layers(self) -> int:
         """Layers that run causal attention over the whole context."""
         return self.layers
+
+
+def train_batch_flops(dm: Dims, feed, i: int) -> float:
+    """Training batch ``i``'s model FLOPs: every batch is B packed rows of
+    S tokens, so each counts the same (the yardstick's dense count)."""
+    return yardstick.train_step_flops(dm, feed.B, feed.S)
 
 
 def program_fields(dm: Dims, c: dict) -> dict:

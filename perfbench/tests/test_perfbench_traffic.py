@@ -110,7 +110,8 @@ def test_weights_repeat_by_seed_and_layer():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["layers.1.attn.wq"], c["layers.1.attn.wq"])
     assert not torch.equal(a["layers.0.attn.wq"], a["layers.1.attn.wq"])
-    assert torch.equal(a["lm_head"], draw.head(dm, 4, CPU))
+    assert torch.equal(a["lm_head"],
+                       draw.group(dm, ("lm_head",), 4, CPU)["lm_head"])
     assert torch.equal(a["layers.1.mlp.up"],
                        draw.layer(dm, 1, 4, CPU)["mlp.up"])
     std = float(a["layers.0.mlp.up"].std())
