@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --bwd-rounding
+    python3 chip_smoke.py --vision-attention
 
 With ``--bwd-rounding`` it runs phase 1 and then only the study of the
 flash backward's rounding: ``flash_attention_bwd.cu`` built four times,
@@ -13,7 +14,9 @@ each setting the largest bf16 ulps (where |plain| >= 2^-8 max) and the
 elements outside both bounds of phase 16's rule in its bf16 cases, and at
 the training shape the call's time (CUDA-graph replays), its two kernels'
 device times under torch.profiler and SDPA's backward, as one JSON line
-last.  It checks only that every setting builds and runs.
+last.  It checks only that every setting builds and runs.  With
+``--vision-attention`` it runs phases 1-2, then only phase 24, and prints
+its kernel entries as one JSON line last.
 
 Phases of the run without arguments, each of which exits nonzero on
 failure:
@@ -422,6 +425,18 @@ failure:
    its losses and parameters bit-identical to the parent's one-process
    replay from the same checkpoint.  No claim about several cards: the
    machine has one.
+24. The vision tower's attention (Qwen2-VL-2B): ``ops.attention`` with
+   ``causal=False`` and int32 segment offsets, 16 heads of 80, over the
+   packed patches of 8 images of 2,304-5,120 patches (28,788 in all), bf16,
+   under autograd with the flash launch counters zeroed just before:
+   one forward and one backward launch, the output and gradients
+   bit-identical to direct calls of the kernels; the forward (with LSE)
+   and the backward held to their plain versions (each segment on its
+   own) by phase 16's rule, LSE within 1e-4; the backward twice for
+   bit-identity.  Times both kernels (CUDA-graph replays) beside the plain
+   versions and SDPA over the images padded to the longest with a key
+   mask, against the bound of ``perfbench/harness/yardstick.py``'s
+   ``flash_*_segments_bound_s``.
 
 Prints the kernel table as one JSON line and, last, the device line.
 Needs nothing but this checkout, PyTorch with CUDA, nvcc and numpy.
@@ -609,6 +624,11 @@ P23_WORLD, P23_STEPS, P23_TIMED, P23_ELASTIC = 2, 3, 2, 2
 # CUDA-graph replays on an H100 80GB HBM3 at 700 W; phase 20d prints it
 # beside this run's times of both kernels
 LOOP_BWD_EARLIER_MS = 0.1751
+# phase 24: the vision tower's attention, Qwen2-VL-2B's 16 heads of 80 over
+# 8 images of h x w merged cells (2 x 2 patches each), packed, not causal
+P24_CELLS = ((24, 24), (40, 32), (28, 28), (30, 40), (26, 26), (36, 25),
+             (25, 25), (34, 34))
+P24_HEADS, P24_D = 16, 80
 # a pool drawn on the card against one drawn on the CPU (phases 4 and 18):
 # the same float64 expressions, but exp rounds differently (each within an
 # ulp), and the inverse of Eq. 1 divides an error in F by the density,
@@ -2597,6 +2617,124 @@ def flash_bwd_vs_plain(torch):
                          f"forward {name}", g_, w_)
     torch.cuda.empty_cache()
     return worst, main
+
+
+def vision_attention_phase(torch, smi):
+    """Phase 24 (see the module docstring).  Returns the launch counts of
+    the autograd run and the forward's and backward's entries for the
+    kernel line (errors, times, bound, library)."""
+    import torch.nn.functional as F
+    from perfbench.harness import yardstick
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain)
+    lengths = [4 * h * w for h, w in P24_CELLS]
+    T, H, D = sum(lengths), P24_HEADS, P24_D
+    seg = torch.tensor(np.cumsum([0, *lengths]), dtype=torch.int32,
+                       device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v, dout = (torch.randn((1, T, H, D), generator=gen,
+                                 device="cuda").bfloat16()
+                     for _ in range(4))
+    opts = dict(causal=False, segments=seg)
+    fns = (flash_attention, flash_attention_bwd)
+
+    # the tower's call under autograd, its launches counted alone
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    zero_counts(fns)
+    out_ag = ops.attention(qg, kg, vg, **opts)
+    grads_ag = torch.autograd.grad(out_ag, (qg, kg, vg), dout)
+    torch.cuda.synchronize()
+    launches = counts(fns)
+    print(f"[vision-attn] {len(lengths)} images, {T} patches, H {H}, D {D}: "
+          f"autograd launches {launches}")
+    check(launches == {"flash_attention": 1, "flash_attention_bwd": 1},
+          f"the tower's attention launched {launches}, expected one "
+          f"forward and one backward")
+
+    out, lse = flash_attention(q, k, v, return_lse=True, **opts)
+    args = (q, k, v, out, lse, dout)
+    got = flash_attention_bwd(*args, **opts)
+    again = flash_attention_bwd(*args, **opts)
+    torch.cuda.synchronize()
+    check(torch.equal(out_ag, out) and all(
+        torch.equal(a, b) for a, b in zip(grads_ag, got)),
+        "the autograd Function's output or gradients differ from the "
+        "kernels' direct calls")
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "the segmented backward is not deterministic")
+    # held to the plain versions; the failures are checked after the
+    # timings, so that a failing run still prints them
+    out_plain, lse_plain = flash_attention_plain(q, k, v, return_lse=True,
+                                                 **opts)
+    want = flash_attention_bwd_plain(*args, **opts)
+    d_lse = float((lse - lse_plain).abs().max())
+    print(f"[vision-attn] LSE max|d| = {d_lse:.3e} (need <= 1e-4)")
+    fails = [] if d_lse <= 1e-4 else [f"LSE differs by {d_lse}"]
+    errs = {}
+    for name, g_, w_ in zip(("out", "dq", "dk", "dv"), (out, *got),
+                            (out_plain, *want)):
+        err, top, bad, ulps = bwd_errors(torch, g_, w_)
+        errs[name] = err
+        print(f"[vision-attn] {name}: max|d| = {err:.3e} (max|plain| "
+              f"{top:.3e}); {ulps:.2f} bf16 ulps at most where |plain| >= "
+              f"2^-8 max (need <= 2); {bad} elements outside both bounds "
+              f"(need 0)")
+        if bad or ulps > 2.0:
+            fails.append(f"{name}: {bad} elements outside both bounds, "
+                         f"{ulps} bf16 ulps")
+    del out_ag, grads_ag, again, want, out_plain, lse_plain, qg, kg, vg
+
+    # SDPA over the images padded to the longest, keys masked past each
+    # image's end
+    n, L = len(lengths), max(lengths)
+
+    def padded(x):
+        y = x.new_zeros((n, L, H, D))
+        for i, (a, b) in enumerate(zip(seg[:-1].tolist(), seg[1:].tolist())):
+            y[i, :b - a] = x[0, a:b]
+        return y.transpose(1, 2).detach().requires_grad_()
+
+    qp, kp, vp = padded(q), padded(k), padded(v)
+    keep = (torch.arange(L, device="cuda")[None, :]
+            < torch.tensor(lengths, device="cuda")[:, None])[:, None, None]
+    lib_out = F.scaled_dot_product_attention(qp, kp, vp, attn_mask=keep)
+    dout_p = padded(dout).detach()
+    fwd = {
+        "ms": graph_ms(torch, [lambda: flash_attention(
+            q, k, v, return_lse=True, **opts)] * 3),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_plain(
+            q, k, v, return_lse=True, **opts)),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qp, kp, vp, attn_mask=keep)),
+        "bound_ms": 1e3 * yardstick.flash_fwd_segments_bound_s(
+            lengths, H, H, D, causal=False, lse=True),
+        "max_abs_err": errs["out"]}
+    bwd = {
+        "ms": graph_ms(torch, [lambda: flash_attention_bwd(
+            *args, **opts)] * 3),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_plain(
+            *args, **opts)),
+        "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+            lib_out, (qp, kp, vp), dout_p, retain_graph=True)),
+        "bound_ms": 1e3 * yardstick.flash_bwd_segments_bound_s(
+            lengths, H, H, D, causal=False),
+        "max_abs_err": max(errs["dq"], errs["dk"], errs["dv"])}
+    pairs = yardstick.segment_pairs(lengths, causal=False)
+    for label, r, per_pair in (("forward", fwd, 4), ("backward", bwd, 10)):
+        ops_ms = 1e3 * (per_pair * D * pairs * H / yardstick.PEAK_FLOPS)
+        r["bound_by"] = ("operations" if ops_ms >= r["bound_ms"] * (1 - 1e-9)
+                         else "bytes")
+        print(f"[vision-attn] {label}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms, SDPA padded {r['library_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms (share "
+              f"{r['bound_ms'] / r['ms']:.1%}); card {smi}")
+    del qp, kp, vp, lib_out, dout_p
+    torch.cuda.empty_cache()
+    check(not fails, f"the segmented D-{D} pair against its plain "
+                     f"versions: {fails}")
+    return launches, {"flash_attention": fwd, "flash_attention_bwd": bwd}
 
 
 def bwd_rounding_study(torch, smi):
@@ -5025,8 +5163,10 @@ def main() -> int:
         rows = bwd_rounding_study(torch, smi)
         print(json.dumps({"bwd_rounding": rows, "card": smi}))
         return 0
-    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}: the only "
-                            f"option is --bwd-rounding")
+    vision_only = sys.argv[1:] == ["--vision-attention"]
+    check(vision_only or not sys.argv[1:],
+          f"unknown arguments {sys.argv[1:]}: the options are "
+          f"--bwd-rounding and --vision-attention")
 
     # -- 2. build -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -5050,6 +5190,12 @@ def main() -> int:
             check(counts[op] > 0, f"{kname}: no {op} in its SASS")
 
     mark("1-2")
+
+    if vision_only:
+        p24_launches, p24_times = vision_attention_phase(torch, smi)
+        print(json.dumps({"vision_attention": {
+            "launches": p24_launches, **p24_times, "card": smi}}))
+        return 0
 
     # -- 3. kernel against its plain version ------------------------------
     grid = scenarios.default_grid()
@@ -5321,6 +5467,10 @@ def main() -> int:
     p23_launches = distributed_phase(torch, smi)
     kernel["launches_by_path"]["sharded"] = p23_launches["sharded"]
     mark("23")
+
+    # -- 24. the vision tower's attention ----------------------------------
+    p24_launches, p24_times = vision_attention_phase(torch, smi)
+    mark("24")
     sources = {
         "flash_attention": ("flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:89"),
@@ -5397,6 +5547,11 @@ def main() -> int:
         "loop_kernel_ms": t["loop_ms"],
         "launches_by_path": {
             "recurrentgemma_training": p20_launches["linear_recurrence_bwd"]}})
+    # phase 24: the segmented D-80 instances, the vision tower's call
+    for entry in (kernels[1], kernels[4]):
+        name = entry["name"]
+        entry["launches_by_path"]["qwen2_vl_tower"] = p24_launches[name]
+        entry["qwen2_vl_tower_shape"] = p24_times[name]
     print(f"[phases] seconds by phase: {json.dumps(phase_s)}; total "
           f"{sum(phase_s.values()):.1f}")
     print(json.dumps({"kernels": kernels}))

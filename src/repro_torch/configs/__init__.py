@@ -5,7 +5,10 @@ port implements.
 same-family config for CPU tests.  IDs match ``repro.configs``.  The two
 ``embeds_input`` archs (musicgen-medium, qwen2-vl-2b with M-RoPE) take
 precomputed embeddings through ``Model.forward(embeds=...)``, or tokens
-through their embedding table; the two MoE archs (moonshot-v1-16b-a3b,
+through their embedding table; qwen2-vl-2b's entry is ``repro``'s
+backbone, and ``qwen2_vl_2b.whole_config()`` the whole model, vision
+tower and q/k/v biases included, which computes its image features and
+M-RoPE positions from ``pixels`` and ``grids``; the two MoE archs (moonshot-v1-16b-a3b,
 phi3.5-moe-42b-a6.6b) run ``models/moe.py``'s block, and xlstm-1.3b
 ``models/xlstm.py``'s mLSTM and sLSTM blocks.  Every architecture of the
 JAX package's registry is here; an unknown ID raises ``KeyError``.

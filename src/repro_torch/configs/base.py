@@ -43,6 +43,25 @@ class ModelConfig:
     # modality frontend stub: inputs are precomputed embeddings, not tokens
     embeds_input: bool = False
 
+    # biases of the q, k and v projections (Qwen2; the output has none)
+    qkv_bias: bool = False
+
+    # Qwen2-VL's vision tower (``models/vision.py``), off at 0 layers:
+    # pre-LayerNorm blocks of ``vision_d`` with ``vision_heads`` heads, a
+    # fused qkv with its bias, 2-D rotary positions and a QuickGELU MLP of
+    # ``vision_ff`` (LayerNorm eps and rotary theta are Qwen2-VL's
+    # constants there); patches of ``vision_patch_dim`` inputs (channels x
+    # frames x pixels of a patch); ``vision_merge`` x ``vision_merge``
+    # patches merged into one cell of d_model, which takes the place of an
+    # ``image_token_id`` in the text
+    vision_layers: int = 0
+    vision_d: int = 0
+    vision_heads: int = 0
+    vision_ff: int = 0
+    vision_patch_dim: int = 0
+    vision_merge: int = 0
+    image_token_id: int = -1
+
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     mlp_variant: str = "swiglu"    # swiglu (3-matrix) | gelu (2-matrix)
@@ -104,7 +123,22 @@ class ModelConfig:
             per_kind[kind] = self._block_params(kind)
         for i in range(self.n_layers):
             total += per_kind[self.block_pattern[i % len(self.block_pattern)]]
-        return total
+        return total + self.vision_param_count()
+
+    def vision_param_count(self) -> int:
+        """The tower's parameters: the patch embedding (no bias), the
+        blocks (two LayerNorms, qkv and its bias, the output projection
+        and the MLP with their biases) and the merger (a LayerNorm, two
+        matrices with their biases); 0 without a tower."""
+        if not self.vision_layers:
+            return 0
+        vd, f, m = self.vision_d, self.vision_ff, self.vision_merge ** 2
+        block = (4 * vd + 3 * vd * vd + 3 * vd + vd * vd + vd
+                 + 2 * vd * f + f + vd)
+        merger = 2 * vd + (m * vd) ** 2 + m * vd + m * vd * self.d_model \
+            + self.d_model
+        return (self.vision_patch_dim * vd + self.vision_layers * block
+                + merger)
 
     def active_param_count(self) -> int:
         """Params active per token (MoE: top_k of n_experts)."""
@@ -122,6 +156,8 @@ class ModelConfig:
         mlp_mats = 2 if self.mlp_variant == "gelu" else 3
         if kind in ("attn", "local_attn"):
             attn = d * qd + 2 * d * kvd + qd * d
+            if self.qkv_bias:
+                attn += qd + 2 * kvd
             mlp = mlp_mats * d * self.d_ff if self.d_ff else 0
             return attn + mlp + 2 * norm
         if kind == "moe":

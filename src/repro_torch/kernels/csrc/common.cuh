@@ -1,6 +1,6 @@
 // Helpers shared by the attention and recurrence kernels: conversion between
 // the storage type (float or __nv_bfloat16) and float, 16-byte loads of
-// float, and stores of four outputs.
+// float, stores of four outputs, and the segment that holds a position.
 //
 // Every kernel computes in float and rounds to the storage type once, on
 // the way out; __float2bfloat16_rn rounds to nearest even, as PyTorch's
@@ -48,6 +48,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
   __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
   q[0] = __floats2bfloat162_rn(a, b);
   q[1] = __floats2bfloat162_rn(c, d);
+}
+
+// The segment [lo, hi) of the offsets seg[0] = 0 < ... <= seg[n] that
+// holds pos (0 <= pos < seg[n]): the last i with seg[i] <= pos, so an empty
+// segment is passed over.
+__device__ __forceinline__ void seg_bounds(const int* seg, int n, int pos,
+                                           int& lo, int& hi) {
+  int a = 0, b = n;
+  while (b - a > 1) {
+    const int m = (a + b) >> 1;
+    if (seg[m] <= pos) a = m; else b = m;
+  }
+  lo = seg[a];
+  hi = seg[b];
 }
 
 }  // namespace kern

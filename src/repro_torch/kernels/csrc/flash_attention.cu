@@ -52,6 +52,23 @@
 // Ragged edges (Sq or Sk not a multiple of 64) are masked in both kernels,
 // so any Sq <= Sk works.
 //
+// Segments (bf16, D 80): with offsets seg[0] = 0 < ... <= seg[n]
+// = Sq = Sk, a query attends only to the keys of its own segment [seg[i],
+// seg[i + 1]), under the causal mask or not: the packed images of a
+// vision tower, each attending within itself (B = 1).  A query tile
+// streams only the key tiles between its first row's segment start and
+// its last row's segment end, so tiles that no segment pair touches are
+// never loaded; each row masks the keys outside its segment.  Without
+// segments the instances are the unsegmented kernels as they were (the
+// flag is a template parameter).
+//
+// D = 80 (Qwen2-VL's vision tower, 16 heads of 80): the tiles hold two
+// 64-column panels, the TMA box past column 80 arriving as zeros.  S = Q
+// K^T contracts the 80 columns in five k16 steps; O += P V runs at n = 80,
+// V read MN-major from its first panel and 16 columns of the second (at
+// the cell's shape 3.59 ms against 3.98 ms with n = 128 over the
+// zero-padded panels; two blocks an SM gained nothing).
+//
 // Both kernels also write the row log-sum-exp when given an lse pointer:
 // float32 (B, Sq, H), lse = max + log(sum) of the scaled, masked logits in
 // the natural log, as repro's _flash_fwd_shaped returns it; the training
@@ -267,24 +284,30 @@ constexpr int kStages = 2;           // K/V tiles in flight
 constexpr int kPanel = 64 * 128;     // 64 rows x 64 bf16 columns, swizzled
 constexpr int kWgThreads = 160;      // the warpgroup + the producer warp
 
+// Columns of a tile in shared memory: D rounded up to whole 64-column
+// panels (D = 80: two panels, the second zero past column 80).
+template <int D>
+constexpr int kPadded = (D + 63) / 64 * 64;
+
 template <int D>
 struct WgLayout {
-  static constexpr int kTile = (D / 64) * kPanel;   // one 64 x D tile
+  static constexpr int kTile = (kPadded<D> / 64) * kPanel;  // 64 x D tile
   // Q, kStages x (K, V), the barriers, and slack to align to 1024 bytes
   static constexpr int kBytes = 1024 + kTile * (1 + 2 * kStages) +
                                 8 * (2 * kStages + 1);
 };
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                    int Sq, int Sk, int H, int KV, float scale_log2,
-                   int causal, int window) {
+                   int causal, int window, const int* __restrict__ seg,
+                   int n_seg) {
   constexpr int kTile = WgLayout<D>::kTile;
-  constexpr int NP = D / 64;           // panels of a tile
+  constexpr int NP = kPadded<D> / 64;  // panels of a tile
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
@@ -302,7 +325,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int k_begin = 0, k_end = Sk;
   if (causal) k_end = min(Sk, q_hi + 1);
   if (window > 0) k_begin = max(0, q_lo - window + 1) / kWgBK * kWgBK;
-  const int n_tiles = (k_end - k_begin + kWgBK - 1) / kWgBK;
+  // with segments (Sq = Sk, off = 0): where every row of the tile lies in
+  // one segment [tile_lo, tile_hi) (interior), its key tiles inside it
+  // need no per-element test but the band's
+  int tile_lo = 0, tile_hi = 0;
+  bool interior = false;
+  if constexpr (kSeg) {
+    int lo2, hi2;
+    kern::seg_bounds(seg, n_seg, q0, tile_lo, tile_hi);
+    kern::seg_bounds(seg, n_seg, min(q0 + kWgBQ, Sq) - 1, lo2, hi2);
+    k_begin = max(k_begin, tile_lo / kWgBK * kWgBK);
+    k_end = min(k_end, hi2);
+    interior = lo2 == tile_lo && q0 + kWgBQ <= Sq;
+  }
+  const int n_tiles = max(0, (k_end - k_begin + kWgBK - 1) / kWgBK);
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -345,6 +381,18 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  // the segment of each of the thread's two rows (rows past Sq see none)
+  int seg_lo[2] = {0, 0}, seg_hi[2] = {Sk, Sk};
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + row0 + 8 * r;
+      if (row < Sq)
+        kern::seg_bounds(seg, n_seg, row, seg_lo[r], seg_hi[r]);
+      else
+        seg_lo[r] = seg_hi[r] = 0;
+    }
+  }
 
   hop::mbar_wait(qbar, 0);
   __syncwarp();
@@ -362,7 +410,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) hop::fence_reg(sc[i]);
     hop::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {   // D = 80: five k16 steps
       const int at = (kk / 4) * kPanel + (kk % 4) * 32;
       hop::wgmma_m64n64k16_ss(sc, hop::desc_sw128(Qs + at, 16, 1024),
                               hop::desc_sw128(Kt + at, 16, 1024), 1);
@@ -375,14 +423,33 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // mask, then the online softmax in the log2 domain
     const int k0 = k_begin + t * kWgBK;
     float mx[2] = {m[0], m[1]};
+    // a segmented tile inside the segment of every row, with no causal or
+    // window edge in it, skips the per-element test
+    bool whole = false;
+    if constexpr (kSeg)
+      whole = interior && k0 >= tile_lo && k0 + kWgBK <= tile_hi &&
+              (!causal || k0 + kWgBK - 1 <= q0) &&
+              (window <= 0 || q0 + kWgBQ - 1 - k0 < window);
+    if (whole) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int qpos = q0 + row0 + 8 * ((i >> 1) & 1) + off;
-      const int kpos = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
-      const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
-                      (window <= 0 || kpos > qpos - window);
-      sc[i] = ok ? sc[i] * scale_log2 : kNegInf;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      for (int i = 0; i < 32; ++i) {
+        sc[i] *= scale_log2;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qpos = q0 + row0 + 8 * ((i >> 1) & 1) + off;
+        const int kpos = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
+                  (window <= 0 || kpos > qpos - window);
+        if constexpr (kSeg) {
+          const int r = (i >> 1) & 1;
+          ok = ok && kpos >= seg_lo[r] && kpos < seg_hi[r];
+        }
+        sc[i] = ok ? sc[i] * scale_log2 : kNegInf;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      }
     }
     float corr[2];
 #pragma unroll
@@ -419,11 +486,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       hop::wgmma_m64k16_rs<D>(acc, phi[kk],
-                              hop::desc_sw128(Vt + kk * 2048, kPanel, 1024));
+                               hop::desc_sw128(Vt + kk * 2048, kPanel, 1024));
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       hop::wgmma_m64k16_rs<D>(acc, plo[kk],
-                              hop::desc_sw128(Vt + kk * 2048, kPanel, 1024));
+                               hop::desc_sw128(Vt + kk * 2048, kPanel, 1024));
     hop::wgmma_commit();
     hop::wgmma_wait_all();
 #pragma unroll
@@ -448,7 +515,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       lse[((long)b * Sq + q0 + row) * H + h] =
           (m[r] + log2f(l[r])) * 0.6931471805599453f;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < D / 8; ++j) {   // D = 80: the first 80 columns
       *reinterpret_cast<uint32_t*>(ob + row * q_stride + 8 * j + 2 * c) =
           hop::pack_bf16(acc[4 * j + 2 * r] / l[r],
                          acc[4 * j + 2 * r + 1] / l[r]);
@@ -458,12 +525,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // ---- host side -------------------------------------------------------------
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int B, int Sq, int Sk, int H, int KV,
-                        float scale, int causal, int window,
-                        cudaStream_t stream) {
-  auto kernel = flash_wgmma_kernel<D>;
+                        float scale, int causal, int window, const int* seg,
+                        int n_seg, cudaStream_t stream) {
+  auto kernel = flash_wgmma_kernel<D, kSeg>;
   constexpr int bytes = WgLayout<D>::kBytes;
   // Set on every launch: the opt-in is per device, and the call is cheap
   // and allowed while a stream is captured.
@@ -480,7 +547,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
   dim3 grid(B * H, (Sq + kWgBQ - 1) / kWgBQ);
   kernel<<<grid, kWgThreads, bytes, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, KV,
-      scale * 1.4426950408889634f, causal, window);
+      scale * 1.4426950408889634f, causal, window, seg, n_seg);
   return cudaGetLastError();
 }
 
@@ -512,10 +579,12 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v,
     return launch_f32<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
                          window, stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale, causal,
-                          window, stream);
+    return launch_bf16<D, false>(q, k, v, o, lse, B, Sq, Sk, H, KV, scale,
+                                 causal, window, nullptr, 0, stream);
   return cudaErrorInvalidValue;
 }
+
+
 
 }  // namespace
 
@@ -524,15 +593,25 @@ extern "C" const char* flash_attention_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  lse: float32 (B, Sq, H) or null.
+// seg: null, or n_seg + 1 int32 segment offsets on the device (bfloat16,
+// D 80, B = 1, Sq = Sk = seg[n_seg]); D 80 runs with segments only.
 // Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int dtype,
                                       int B, int Sq, int Sk, int H, int KV,
                                       int D, float scale, int causal,
-                                      int window, void* stream, void* lse) {
+                                      int window, void* stream, void* lse,
+                                      const void* seg, int n_seg) {
   if (Sq == 0 || B * H == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (seg != nullptr) {
+    if (D != 80 || dtype != 1 || B != 1 || Sq != Sk || n_seg < 1)
+      return cudaErrorInvalidValue;
+    return launch_bf16<80, true>(q, k, v, o, l, 1, Sq, Sq, H, KV, scale,
+                                 causal, window, static_cast<const int*>(seg),
+                                 n_seg, s);
+  }
   switch (D) {
     case 64:
       return launch<64>(dtype, q, k, v, o, l, B, Sq, Sk, H, KV, scale,

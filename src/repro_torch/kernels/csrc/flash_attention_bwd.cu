@@ -93,6 +93,23 @@
 // 64 x 256 tiles (each four 128-byte-swizzled panels), 192 KB plus the
 // stats and slack, 198,680 bytes: one block an SM (min_blocks 1).
 //
+// Segments (bf16, D 80), as in flash_attention.cu: with offsets
+// seg[0] = 0 < ... <= seg[n] = Sq = Sk (B = 1), a query sees only the keys
+// of its own segment, under the causal mask or not.  The dq kernel streams
+// only the key tiles between its first row's segment start and its last
+// row's segment end, the dk/dv kernel only the query tiles between its
+// first key's segment start and its last key's segment end; each row masks
+// the columns outside its segment, and a tile inside one segment whose
+// every pair the band keeps skips the per-element test.  The unsegmented
+// instances are the kernels as they were (the flag is a template
+// parameter).
+// D = 80 (Qwen2-VL's vision tower): tiles of two 64-column panels, the TMA
+// box past column 80 arriving as zeros; S and dP contract the 80 columns
+// in five k16 steps, the three gradient products run at n = 80 (their B
+// operand read MN-major from the first panel and 16 columns of the
+// second; at the cell's shape 6.42 ms a call against 7.27 ms at n = 128
+// over the zero-padded panels).
+//
 // float32 (dq_kernel, dkdv_kernel) stays on the CUDA cores in full
 // float32: its contract (1e-5 x max|plain|, on which the card-vs-CPU
 // training check rests) would not hold through TF32.  The same two
@@ -111,7 +128,7 @@
 // resident tiles are streamed again for each half.  22 D a pair.
 //
 // Host side: flash_attention_bwd_launch checks the head dimension (64, 128
-// or 256), launches both kernels of the type on the caller's stream (the
+// or 256; 80 with segments, in bf16), launches both kernels of the type on the caller's stream (the
 // dq kernel first: it writes delta) and returns the first cudaError_t.
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -497,6 +514,11 @@ constexpr bool kLoDS = (FLASH_BWD_LO & 2) != 0;
 // Blocks an SM: a block of 4 warps may use 255 registers a thread at two
 // blocks an SM and 168 at three; the dq kernel at D = 64 fits three.  At
 // D = 256 six 64 x 256 tiles take 194 KB: one block an SM.
+// Columns of a tile in shared memory: D rounded up to whole 64-column
+// panels (D = 80: two panels, the second zero past column 80).
+template <int D>
+constexpr int kPadded = (D + 63) / 64 * 64;
+
 template <int D>
 constexpr int min_blocks(bool dq) {
   return D == 256 ? 1 : D == 64 && dq ? 3 : 2;
@@ -512,9 +534,10 @@ __host__ __device__ constexpr int out_cols() {
   return D > 128 ? 128 : D;
 }
 
+
 template <int D>
 struct BwdLayout {
-  static constexpr int kTile = (D / 64) * kPanel;   // one 64 x D tile
+  static constexpr int kTile = (kPadded<D> / 64) * kPanel;  // 64 x D tile
   // two resident tiles, kStages x two streamed tiles, per stage 64 lse and
   // 64 delta values (the dk/dv kernel), barriers, and slack to align the
   // tiles to 1024 bytes
@@ -634,7 +657,7 @@ __device__ __forceinline__ void store_frag(__nv_bfloat16* base, long stride,
 
 // ---- dq (and lse, delta for the dk/dv kernel) ---------------------------
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kWgThreads, min_blocks<D>(true))
 dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -645,11 +668,12 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const float* __restrict__ lse, float* __restrict__ lse2_out,
                 float* __restrict__ delta_out, __nv_bfloat16* __restrict__ dq,
                 int Sq, int Sk, int H, int KV, int Sqp, float scale,
-                int causal, int window) {
+                int causal, int window, const int* __restrict__ seg,
+                int n_seg) {
   constexpr int kTile = BwdLayout<D>::kTile;
-  constexpr int NP = D / 64;           // panels of a tile
+  constexpr int NP = kPadded<D> / 64;  // panels of a tile
   constexpr int DO = out_cols<D>();
-  constexpr int NH = D / DO;           // column blocks
+  constexpr int NH = (D + DO - 1) / DO;  // column blocks
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Qs = smem;
@@ -670,6 +694,21 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int k_begin = 0, k_end = Sk;
   if (causal) k_end = min(Sk, q_hi + 1);
   if (window > 0) k_begin = max(0, q_lo - window + 1) / kWgB * kWgB;
+  // with segments (Sq = Sk): the tile's rows lie in [seg_first, seg_last)
+  // and, where they share one segment (one_seg), every key of a tile
+  // inside it is visible to every row of it, up to the band
+  int seg_first = 0, seg_last = Sk;
+  bool one_seg = false;
+  if constexpr (kSeg) {
+    int lo, hi, lo2, hi2;
+    kern::seg_bounds(seg, n_seg, q0, lo, hi);
+    kern::seg_bounds(seg, n_seg, min(q0 + kWgB, Sq) - 1, lo2, hi2);
+    k_begin = max(k_begin, lo / kWgB * kWgB);
+    k_end = min(k_end, hi2);
+    seg_first = lo;
+    seg_last = hi2;
+    one_seg = lo == lo2;
+  }
   const int n_tiles = max(0, (k_end - k_begin + kWgB - 1) / kWgB);
 
   // thread 0 loads: Q and dO once, key tile t + 1 while tile t is used
@@ -712,12 +751,11 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     float sum = 0.f;
     lse2[r] = 0.f;
     if (row < Sq) {
-      const long at =
-          ((long)b * Sq + row) * q_stride + (long)h * D + c * (D / 4);
-#pragma unroll
-      for (int e = 0; e < D / 4; e += 8) {
-        const uint4 ov = *reinterpret_cast<const uint4*>(o + at + e);
-        const uint4 dv = *reinterpret_cast<const uint4*>(dout + at + e);
+      const long at = ((long)b * Sq + row) * q_stride + (long)h * D;
+      // 8 columns from ``e`` on
+      auto add8 = [&](long e) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + e);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + e);
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
         const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
 #pragma unroll
@@ -727,6 +765,13 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           sum += df.x * of.x;
           sum += df.y * of.y;
         }
+      };
+      if constexpr (D % 32 == 0) {     // a quarter of D each
+#pragma unroll
+        for (int e = 0; e < D / 4; e += 8) add8(at + c * (D / 4) + e);
+      } else {                         // D = 80: every fourth 8 columns
+#pragma unroll
+        for (int j = c; j < D / 8; j += 4) add8(at + 8 * j);
       }
       lse2[r] = lse[((long)b * Sq + row) * H + h] * kLog2e;
     }
@@ -741,6 +786,17 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float scale_log2 = scale * kLog2e;
   const Band band(causal, window);
   const bool q_in[2] = {q0 + row0 < Sq, q0 + row0 + 8 < Sq};
+  // each row's segment (rows past Sq see none)
+  int seg_lo[2] = {0, 0}, seg_hi[2] = {Sk, Sk};
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (q_in[r])
+        kern::seg_bounds(seg, n_seg, q0 + row0 + 8 * r, seg_lo[r], seg_hi[r]);
+      else
+        seg_lo[r] = seg_hi[r] = 0;
+    }
+  }
 
   float acc[DO / 2];
   zero<DO / 2>(acc);
@@ -779,14 +835,17 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int r = frag_half(i);
         float p = exp2f(fmaf(sc[i], scale_log2, -lse2[r]));
         if constexpr (decltype(masked)::value) {
-          const bool ok = q_in[r] && k0 + frag_col(i, c) < Sk &&
-                          band.has(d0 + 8 * r - 8 * (i >> 2) - (i & 1));
+          const int kpos = k0 + frag_col(i, c);
+          bool ok = q_in[r] && kpos < Sk &&
+                    band.has(d0 + 8 * r - 8 * (i >> 2) - (i & 1));
+          if constexpr (kSeg) ok = ok && kpos >= seg_lo[r] && kpos < seg_hi[r];
           p = ok ? p : 0.f;
         }
         dp[i] = p * (dp[i] - delta[r]) * scale;
       }
     };
-    if (band.covers(q0, k0, off, Sq, Sk))
+    if (band.covers(q0, k0, off, Sq, Sk) &&
+        (!kSeg || (one_seg && k0 >= seg_first && k0 + kWgB <= seg_last)))
       tile(Flag<false>());
     else
       tile(Flag<true>());
@@ -801,13 +860,14 @@ dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     hop::wgmma_wait_all();
     fence_regs<DO / 2>(acc);
   }
-  store_frag<DO>(dq + (long)b * Sq * q_stride + (long)h * D + half * DO,
-                 q_stride, acc, q0, Sq);
+  store_frag<DO>(
+      dq + (long)b * Sq * q_stride + (long)h * D + half * DO, q_stride, acc,
+      q0, Sq);
 }
 
 // ---- dk, dv ---------------------------------------------------------------
 
-template <int D>
+template <int D, bool kSeg>
 __global__ void __launch_bounds__(kWgThreads, min_blocks<D>(false))
 dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
@@ -817,11 +877,12 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                   const float* __restrict__ delta_in,
                   __nv_bfloat16* __restrict__ dk,
                   __nv_bfloat16* __restrict__ dv, int Sq, int Sk, int H,
-                  int KV, int Sqp, float scale, int causal, int window) {
+                  int KV, int Sqp, float scale, int causal, int window,
+                  const int* __restrict__ seg, int n_seg) {
   constexpr int kTile = BwdLayout<D>::kTile;
-  constexpr int NP = D / 64;
+  constexpr int NP = kPadded<D> / 64;
   constexpr int DO = out_cols<D>();
-  constexpr int NH = D / DO;
+  constexpr int NH = (D + DO - 1) / DO;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (hop::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* Ks = smem;
@@ -841,6 +902,20 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int qi_begin = 0, qi_end = Sq;
   if (causal) qi_begin = max(0, k0 - off) / kWgB * kWgB;
   if (window > 0) qi_end = max(0, min(Sq, k0 + kWgB - 1 + window - off));
+  // with segments (Sq = Sk): the tile's keys lie in [seg_first, seg_last),
+  // in one segment where one_seg
+  int seg_first = 0, seg_last = Sq;
+  bool one_seg = false;
+  if constexpr (kSeg) {
+    int lo, hi, lo2, hi2;
+    kern::seg_bounds(seg, n_seg, k0, lo, hi);
+    kern::seg_bounds(seg, n_seg, min(k0 + kWgB, Sk) - 1, lo2, hi2);
+    qi_begin = max(qi_begin, lo / kWgB * kWgB);
+    qi_end = min(qi_end, hi2);
+    seg_first = lo;
+    seg_last = hi2;
+    one_seg = lo == lo2;
+  }
   const int n_q = max(0, (qi_end - qi_begin + kWgB - 1) / kWgB);
   const int n_tiles = G * n_q;         // (head of the group, query tile)
 
@@ -884,6 +959,17 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float scale_log2 = scale * kLog2e;
   const Band band(causal, window);
   const bool k_in[2] = {k0 + row0 < Sk, k0 + row0 + 8 < Sk};
+  // each key row's segment (rows past Sk see none)
+  int seg_lo[2] = {0, 0}, seg_hi[2] = {Sq, Sq};
+  if constexpr (kSeg) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (k_in[r])
+        kern::seg_bounds(seg, n_seg, k0 + row0 + 8 * r, seg_lo[r], seg_hi[r]);
+      else
+        seg_lo[r] = seg_hi[r] = 0;
+    }
+  }
   float adk[DO / 2], adv[DO / 2];
   zero<DO / 2>(adk);
   zero<DO / 2>(adv);
@@ -924,15 +1010,18 @@ dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int col = frag_col(i, c), r = frag_half(i);
         float p = exp2f(fmaf(st[i], scale_log2, -lse2[col]));
         if constexpr (decltype(masked)::value) {
-          const bool ok = k_in[r] && q0 + col < Sq &&
-                          band.has(d0 + 8 * (i >> 2) + (i & 1) - 8 * r);
+          bool ok = k_in[r] && q0 + col < Sq &&
+                    band.has(d0 + 8 * (i >> 2) + (i & 1) - 8 * r);
+          if constexpr (kSeg)
+            ok = ok && q0 + col >= seg_lo[r] && q0 + col < seg_hi[r];
           p = ok ? p : 0.f;
         }
         st[i] = p;
         dpt[i] = p * (dpt[i] - delta[col]) * scale;
       }
     };
-    if (band.covers(q0, k0, off, Sq, Sk))
+    if (band.covers(q0, k0, off, Sq, Sk) &&
+        (!kSeg || (one_seg && q0 >= seg_first && q0 + kWgB <= seg_last)))
       tile(Flag<false>());
     else
       tile(Flag<true>());
@@ -992,15 +1081,16 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool kSeg>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const void* o, const float* lse, const void* dout,
                         float* scratch, void* dq, void* dk, void* dv, int B,
                         int Sq, int Sk, int H, int KV, float scale,
-                        int causal, int window, cudaStream_t stream) {
+                        int causal, int window, const int* seg, int n_seg,
+                        cudaStream_t stream) {
   constexpr int bytes = BwdLayout<D>::kBytes;
-  auto kq = dq_wgmma_kernel<D>;
-  auto kkv = dkdv_wgmma_kernel<D>;
+  auto kq = dq_wgmma_kernel<D, kSeg>;
+  auto kkv = dkdv_wgmma_kernel<D, kSeg>;
   // Set on every launch: the opt-in is per device, and the call is cheap
   // and allowed while a stream is captured.
   cudaError_t err = cudaFuncSetAttribute(
@@ -1022,19 +1112,19 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   const int Sqp = (Sq + kWgB - 1) / kWgB * kWgB;
   float* lse2 = scratch;
   float* delta = scratch + (long)B * H * Sqp;
-  constexpr int NH = D / out_cols<D>();
+  constexpr int NH = (D + out_cols<D>() - 1) / out_cols<D>();
   kq<<<dim3(B * H * NH, Sqp / kWgB), kWgThreads, bytes, stream>>>(
       tq, tk, tv, tdo, static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta,
       static_cast<__nv_bfloat16*>(dq), Sq, Sk, H, KV, Sqp, scale, causal,
-      window);
+      window, seg, n_seg);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kkv<<<dim3(B * KV * NH, (Sk + kWgB - 1) / kWgB), kWgThreads, bytes,
                 stream>>>(
       tq, tk, tv, tdo, lse2, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), Sq, Sk, H, KV, Sqp, scale, causal,
-      window);
+      window, seg, n_seg);
   return cudaGetLastError();
 }
 
@@ -1049,10 +1139,13 @@ cudaError_t launch_typed(int dtype, const void* q, const void* k,
     return launch_f32<D>(q, k, v, o, lse, dout, scratch, dq, dk, dv, B, Sq,
                          Sk, H, KV, scale, causal, window, stream);
   if (dtype == 1)
-    return launch_bf16<D>(q, k, v, o, lse, dout, scratch, dq, dk, dv, B, Sq,
-                          Sk, H, KV, scale, causal, window, stream);
+    return launch_bf16<D, false>(q, k, v, o, lse, dout, scratch, dq, dk, dv,
+                                 B, Sq, Sk, H, KV, scale, causal, window,
+                                 nullptr, 0, stream);
   return cudaErrorInvalidValue;
 }
+
+
 
 }  // namespace
 
@@ -1061,17 +1154,27 @@ extern "C" const char* flash_attention_bwd_error_string(int err) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16.  lse: float32 (B, Sq, H).  scratch:
-// float32, 2 B H (Sq rounded up to 64) elements, filled by the call.
+// float32, 2 B H (Sq rounded up to 64) elements, filled by the call.  seg:
+// null, or n_seg + 1 int32 segment offsets on the device (bfloat16, D 80,
+// B = 1, Sq = Sk = seg[n_seg]); D 80 runs with segments only.
 // Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* scratch, void* dq, void* dk,
     void* dv, int dtype, int B, int Sq, int Sk, int H, int KV, int D,
-    float scale, int causal, int window, void* stream) {
+    float scale, int causal, int window, void* stream, const void* seg,
+    int n_seg) {
   if (B * H == 0 || Sk == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* sc = static_cast<float*>(scratch);
+  if (seg != nullptr) {
+    if (D != 80 || dtype != 1 || B != 1 || Sq != Sk || n_seg < 1)
+      return cudaErrorInvalidValue;
+    return launch_bf16<80, true>(q, k, v, o, l, dout, sc, dq, dk, dv, 1, Sq,
+                                 Sq, H, KV, scale, causal, window,
+                                 static_cast<const int*>(seg), n_seg, s);
+  }
   switch (D) {
     case 64:
       return launch_typed<64>(dtype, q, k, v, o, l, dout, sc, dq, dk, dv, B,

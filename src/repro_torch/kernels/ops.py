@@ -8,8 +8,10 @@ the hand-written kernel, a CPU tensor to the kernel's plain PyTorch
 version, and any other device raises.  So there is no ``impl=`` knob, and
 ``ModelConfig.attention_impl``, kept in the copied dataclass, is not read.
 
-    attention(q, k, v, *, causal=True, window=0, scale=None)
-        train / prefill attention; q (B, Sq, H, D), k, v (B, Sk, KV, D).
+    attention(q, k, v, *, causal=True, window=0, scale=None, segments=None)
+        train / prefill attention; q (B, Sq, H, D), k, v (B, Sk, KV, D);
+        ``segments``: offsets of packed segments (B = 1), each query
+        seeing only its own segment's keys (a vision tower's images).
         Where autograd records (grad enabled and an input requires grad)
         it goes through ``FlashAttention``: the forward kernel with LSE,
         then the backward kernel; otherwise (serving) the forward alone.
@@ -70,11 +72,11 @@ def _records(*xs):
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
-              scale: float | None = None):
+              scale: float | None = None, segments=None):
     if _records(q, k, v):
-        return FlashAttention.apply(q, k, v, causal, window, scale)
+        return FlashAttention.apply(q, k, v, causal, window, scale, segments)
     return flash_attention(q, k, v, causal=causal, window=window,
-                           scale=scale)
+                           scale=scale, segments=segments)
 
 
 def linear_recurrence(a, b, h0=None):

@@ -40,9 +40,14 @@ EST_JOB_HOURS = 0.05
 
 def serve_batch(cfg, model, prompts, n_decode: int = 16, device="cuda"):
     """Greedy-decode ``n_decode`` tokens for a (B, S) batch of token
-    prompts on ``device`` (where ``model`` must live).  Returns (B,
-    n_decode) int32 tokens: the prefill's next token, then one per decode
-    step."""
+    prompts (or a batch dict with ``tokens``; one with ``pixels`` is
+    refused: image serving is not ported) on ``device`` (where ``model``
+    must live).  Returns (B, n_decode) int32 tokens: the prefill's next
+    token, then one per decode step."""
+    if isinstance(prompts, dict):
+        if prompts.get("pixels") is not None:
+            raise ValueError(steps.NO_IMAGE_SERVING)
+        prompts = prompts["tokens"]
     dev = resolve_device(device)
     if model.device.type != dev.type or dev.index not in (
             None, model.device.index):

@@ -87,6 +87,9 @@ def make_train_step(cfg, tc, group=None):
             loss, aux, grads = value_and_grad(model, batch)
         else:
             B = batch["labels"].shape[0]
+            if batch.get("pixels") is not None:
+                raise ValueError("microbatches of image rows are not cut: "
+                                 "pixels and grids run in one microbatch")
             if B % accum:
                 raise ValueError(f"batch {B} does not split into "
                                  f"{accum} microbatches")
@@ -136,8 +139,17 @@ def _positions(batch) -> int:
     return x.numel() if x is not None else batch["embeds"].shape[:2].numel()
 
 
+# what image serving lacks, named where a batch with pixels is refused
+NO_IMAGE_SERVING = ("serving images is not ported: the prefill does not run "
+                    "the vision tower, splice its merged cells into the "
+                    "cache or carry the image's M-RoPE positions on into "
+                    "decode; serve text prompts, or train on image rows")
+
+
 def make_prefill_step(cfg):
     def prefill(model, cache, batch):
+        if batch.get("pixels") is not None:
+            raise ValueError(NO_IMAGE_SERVING)
         # a batch's prefill opens its unit, which its decode steps join
         with tracing.span("step.prefill", device=model.device,
                           tokens=_positions(batch), unit=True):

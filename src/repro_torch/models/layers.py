@@ -183,6 +183,9 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="train",
     its positions (``rotary``; None where ``cfg.pos_type`` rotates
     nothing).  Returns (out, cache).
 
+    q, k and v add their biases ``bq``, ``bk``, ``bv`` under
+    ``cfg.qkv_bias`` (Qwen2; the output projection has none).
+
     train/prefill: (windowed-)causal attention over the sequence; prefill
     also fills the cache.  decode: S == 1, written into the cache (a ring
     buffer when windowed) at the step's position ``at`` (its
@@ -191,9 +194,12 @@ def attention_block(cfg, p, x, *, positions, cache=None, mode="train",
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     dt = cdt(cfg)
-    q = (x @ p["wq"].to(dt)).view(B, S, H, hd)
-    k = (x @ p["wk"].to(dt)).view(B, S, KV, hd)
-    v = (x @ p["wv"].to(dt)).view(B, S, KV, hd)
+    q, k, v = x @ p["wq"].to(dt), x @ p["wk"].to(dt), x @ p["wv"].to(dt)
+    if cfg.qkv_bias:
+        q, k, v = (q + p["bq"].to(dt), k + p["bk"].to(dt),
+                   v + p["bv"].to(dt))
+    q, k, v = (q.view(B, S, H, hd), k.view(B, S, KV, hd),
+               v.view(B, S, KV, hd))
     q, k = _rope_qk(positions, q, k)
 
     if mode == "decode":

@@ -13,8 +13,12 @@ Every block kind of ``repro``'s registry is ported: ``attn``,
 (``models/xlstm.py``); any other kind raises ``NotImplementedError``.
 A forward takes tokens, looked up in the embedding table, or precomputed
 embeddings (``embeds=``, the stubbed EnCodec frontend of musicgen-medium
-and vision tower of qwen2-vl-2b), and optional positions: (B, S), or
-(3, B, S) t / h / w streams under M-RoPE.
+and the backbone-only qwen2-vl-2b entry), and optional positions: (B, S),
+or (3, B, S) t / h / w streams under M-RoPE.  A model with a vision tower
+(``cfg.vision_layers``, Qwen2-VL: ``models/vision.py``) also takes
+``pixels`` and ``grids``: it runs the tower over the step's packed
+patches, merges them, splices the merged cells into the token embeddings
+at the image pads, and computes the M-RoPE positions from the grids.
 
 Serving and training hold their weights differently.  A serving model
 stores matrices in the compute dtype, frozen (``models/weights.py``).  A
@@ -25,8 +29,9 @@ forward recomputes each layer in the backward (``torch.utils.checkpoint``)
 when ``cfg.remat`` is set, as ``repro`` wraps each group in
 ``jax.checkpoint``.  Every ported block trains on the card: attention
 (RoPE or M-RoPE) through the flash pair (``FlashAttention``, head dims 64,
-128 and 256), the RG-LRU recurrence through its kernel pair
-(``LinearRecurrence``), the rest through PyTorch's own autograd.  Under
+128 and 256; the vision tower's 80 with segments), the RG-LRU recurrence
+through its kernel pair (``LinearRecurrence``), the rest through
+PyTorch's own autograd.  Under
 remat each layer's forward runs twice (the forward, then the backward's
 recomputation, which is the one that keeps its saved tensors) and its
 backward once.
@@ -44,6 +49,7 @@ from ..device import resolve_device
 from . import layers as L
 from . import moe as M
 from . import rglru as R
+from . import vision as V
 from . import xlstm as X
 
 _INIT_SCALE = 0.02
@@ -100,13 +106,17 @@ def _keeps_storage(dev, kinds) -> bool:
 
 class _Tree(nn.Module):
     """A nested dictionary of tensors as a module: ``p["attn"]["wq"]``
-    reads the same parameter as in ``repro``'s pytree."""
+    reads the same parameter as in ``repro``'s pytree; a list of
+    dictionaries (the tower's ``blocks``) becomes a ``ModuleList``."""
 
     def __init__(self, tree, trainable=False):
         super().__init__()
         for name, value in tree.items():
             if isinstance(value, dict):
                 self.add_module(name, _Tree(value, trainable))
+            elif isinstance(value, list):
+                self.add_module(name, nn.ModuleList(
+                    _Tree(v, trainable) for v in value))
             else:
                 self.register_parameter(
                     name, nn.Parameter(value, requires_grad=trainable))
@@ -121,9 +131,10 @@ class Model(nn.Module):
 
     ``params``: {"embed": (vocab, d), "final_norm": (d,), ["lm_head":
     (d, vocab),] "layers": [one nested dict per layer, repro's names]},
-    already in the storage dtypes of ``models/weights.py``, or, with
-    ``trainable``, all in ``param_dtype``: the parameters then require
-    grad.
+    with a vision tower also "vision" ({"patch_embed", "blocks": [...]})
+    and "merger", already in the storage dtypes of ``models/weights.py``,
+    or, with ``trainable``, all in ``param_dtype``: the parameters then
+    require grad.
     """
 
     def __init__(self, cfg, params, *, trainable: bool = False):
@@ -144,6 +155,13 @@ class Model(nn.Module):
                                      requires_grad=trainable))
         self.layers = nn.ModuleList(_Tree(p, trainable)
                                     for p in params["layers"])
+        if cfg.vision_layers:
+            if len(params["vision"]["blocks"]) != cfg.vision_layers:
+                raise ValueError(f"{len(params['vision']['blocks'])} tower "
+                                 f"blocks for a {cfg.vision_layers}-block "
+                                 f"config")
+            self.vision = _Tree(params["vision"], trainable)
+            self.merger = _Tree(params["merger"], trainable)
         pdt = getattr(torch, cfg.param_dtype)
         bad = {p.dtype for p in self.parameters()} - {pdt}
         if trainable and bad:
@@ -218,9 +236,37 @@ class Model(nn.Module):
         self._lent = weakref.ref(cache)
         return cache
 
+    def _images(self, tokens, x, pixels, grids, positions, cache, mode):
+        """x with the merged image cells spliced in at the image pads,
+        and the positions (the M-RoPE index of the grids where none are
+        given)."""
+        cfg = self.cfg
+        if not cfg.vision_layers:
+            raise ValueError(f"{cfg.name} has no vision tower: no pixels")
+        if tokens is None or mode == "decode" or (
+                cache is not None and cache["t"]):
+            raise ValueError("pixels go with tokens, in a train or prefill "
+                             "forward from position 0")
+        grid = V.grid_list(cfg, grids)
+        # the tokens reach the host behind the card's queue while the tower
+        # is issued; the index is computed on the host as the tower runs
+        host = V.HostCopy(tokens) if positions is None else None
+        n = V.offsets(grid)[-1]
+        remat = cfg.remat and mode == "train" and torch.is_grad_enabled()
+        with tracing.span("model.vision", device=x.device, tokens=n):
+            tracing.count("vision.attn_pairs", V.attention_pairs(grid))
+            h = V.tower(cfg, self.vision, pixels, grid, remat)
+        with tracing.span("model.merger"):
+            x = V.splice(cfg, x, tokens, V.merge(cfg, self.merger, h))
+        if host is not None:
+            with tracing.span("model.mrope_index"):
+                positions = V.to_device(
+                    V.mrope_positions(cfg, host.get(), grid), x.device)
+        return x, positions
+
     def forward(self, tokens=None, *, embeds=None, positions=None,
                 cache=None, mode: str = "train", last_only: bool = False,
-                t=None):
+                t=None, pixels=None, grids=None):
         """Exactly one of ``tokens`` (B, S) int, looked up in the embedding
         table, and ``embeds`` (B, S, d_model), cast to the compute dtype
         as ``repro`` casts them.  ``positions``: (B, S) int, or (3, B, S)
@@ -230,7 +276,10 @@ class Model(nn.Module):
         from which the layers derive theirs on the device
         (``layers.DecodeAt``); RoPE's tables are computed once for every
         layer (``layers.rotary``).  Returns (logits, cache); ``last_only``
-        unembeds the last position only (B, 1, vocab)."""
+        unembeds the last position only (B, 1, vocab).  ``pixels``
+        (patches, vision_patch_dim), in the processor's merge-window order,
+        and ``grids`` (images, 3: t, h, w in patches) go with tokens whose
+        image pads take the merged cells, image after image."""
         cfg = self.cfg
         if (tokens is None) == (embeds is None):
             raise ValueError("give exactly one of tokens and embeds")
@@ -241,6 +290,9 @@ class Model(nn.Module):
             else:
                 B, S = embeds.shape[:2]
                 x = embeds.to(L.cdt(cfg))
+        if pixels is not None:
+            x, positions = self._images(tokens, x, pixels, grids, positions,
+                                        cache, mode)
         at = None
         if mode == "decode":
             if t is None:
@@ -330,11 +382,13 @@ def lm_loss(model, batch):
     """Next-token cross-entropy, the mean over valid positions, plus the
     1e-4 z-loss (``repro.models.transformer.lm_loss``).  ``batch`` has
     tokens (B, S) or embeds (B, S, d_model), labels (B, S), and optional
-    positions ((B, S), or (3, B, S) under M-RoPE) and mask (B, S).
+    positions ((B, S), or (3, B, S) under M-RoPE), mask (B, S), and, for a
+    model with a vision tower, pixels and grids (``Model.forward``).
     Returns ``(loss + zloss, {"nll": loss, "zloss": zloss})``, float32
     scalars."""
     logits, _ = model(batch.get("tokens"), embeds=batch.get("embeds"),
-                      positions=batch.get("positions"), mode="train")
+                      positions=batch.get("positions"), mode="train",
+                      pixels=batch.get("pixels"), grids=batch.get("grids"))
     with tracing.span("model.loss"):
         logz, gold = _LogZGold.apply(logits, batch["labels"])
         nll = logz - gold
@@ -412,6 +466,10 @@ def _init_layer(cfg, kind, gen, dev):
         p = {"ln1": _norm(d, dev), "attn": {
             "wq": _normal(gen, (d, qd), dev), "wk": _normal(gen, (d, kvd), dev),
             "wv": _normal(gen, (d, kvd), dev), "wo": _normal(gen, (qd, d), dev)}}
+        if cfg.qkv_bias:
+            p["attn"].update(bq=torch.zeros(qd, device=dev),
+                             bk=torch.zeros(kvd, device=dev),
+                             bv=torch.zeros(kvd, device=dev))
     if kind == "moe":
         # the experts take the place of the MLP (d_ff is their width)
         e, f = cfg.n_experts, cfg.d_ff
@@ -424,6 +482,37 @@ def _init_layer(cfg, kind, gen, dev):
         p["ln2"] = _norm(d, dev)
         p["mlp"] = _init_mlp(cfg, gen, dev)
     return p
+
+
+def _init_vision(cfg, gen, dev):
+    """The tower and the merger: normal x 0.02 matrices, LayerNorm scales
+    ones and shifts zeros, zero biases, as Hugging Face initialises
+    them."""
+    vd, f = cfg.vision_d, cfg.vision_ff
+    md = cfg.vision_merge ** 2 * vd
+
+    def ln(n):
+        return {"scale": torch.ones(n, device=dev),
+                "shift": torch.zeros(n, device=dev)}
+
+    def zeros(n):
+        return torch.zeros(n, device=dev)
+
+    blocks = [{"ln1": ln(vd), "ln2": ln(vd),
+               "attn": {"qkv": _normal(gen, (vd, 3 * vd), dev),
+                        "qkv_b": zeros(3 * vd),
+                        "proj": _normal(gen, (vd, vd), dev),
+                        "proj_b": zeros(vd)},
+               "mlp": {"fc1": _normal(gen, (vd, f), dev), "fc1_b": zeros(f),
+                       "fc2": _normal(gen, (f, vd), dev), "fc2_b": zeros(vd)}}
+              for _ in range(cfg.vision_layers)]
+    vision = {"patch_embed": _normal(gen, (cfg.vision_patch_dim, vd), dev),
+              "blocks": blocks}
+    merger = {"ln": ln(vd), "fc1": _normal(gen, (md, md), dev),
+              "fc1_b": zeros(md),
+              "fc2": _normal(gen, (md, cfg.d_model), dev),
+              "fc2_b": zeros(cfg.d_model)}
+    return vision, merger
 
 
 def init(cfg, generator: torch.Generator, device="cuda", *,
@@ -454,4 +543,7 @@ def init(cfg, generator: torch.Generator, device="cuda", *,
     # one layer at a time, so a serving model holds one layer in float32
     params["layers"] = [keep(_init_layer(cfg, kind, generator, dev))
                         for kind in kinds]
+    if cfg.vision_layers:
+        params["vision"], params["merger"] = map(
+            keep, _init_vision(cfg, generator, dev))
     return Model(cfg, params, trainable=trainable)

@@ -26,6 +26,8 @@ Spans nest through one stack that every thread shares: a step's thread
 waits in ``torch.autograd.grad`` while autograd's device thread runs the
 backward and remat's recomputation, so spans still open and close in turn.
 At most ``CAP`` spans are kept; ``dropped()`` counts the rest.
+``count(name, n)`` keeps a counter as an instant span whose tokens are
+``n``.
 """
 from __future__ import annotations
 
@@ -109,6 +111,15 @@ def span(name: str, *, device: torch.device | None = None, tokens: int = 0,
     if not (_rec.forced or _profiling()):
         return _OFF
     return Span(name, device, tokens, unit)
+
+
+def count(name: str, n: int):
+    """A counter while recording is on: an instant span named ``name``
+    whose tokens carry ``n`` (the tower's attention pairs a step), so that
+    ``summary`` sums it by name."""
+    if _rec.forced or _profiling():
+        with Span(name, None, int(n), False):
+            pass
 
 
 @contextlib.contextmanager

@@ -128,8 +128,14 @@ def _tbatch(**kw):
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("get", ["get", "smoke"])
 def test_config_equals_repro(arch, get):
+    """``repro``'s fields as ``repro`` has them; the port's own (the
+    vision tower's and the q/k/v biases') at their defaults, off."""
     got, want = getattr(TC, get)(arch), getattr(JC, get)(arch)
-    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    mine, theirs = dataclasses.asdict(got), dataclasses.asdict(want)
+    assert {k: mine[k] for k in theirs} == theirs
+    off = {f.name: f.default for f in dataclasses.fields(got)
+           if f.name not in theirs}
+    assert off and {k: mine[k] for k in off} == off
     assert got.embeds_input
 
 

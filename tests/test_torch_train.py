@@ -218,6 +218,53 @@ def test_cosine_schedule_matches_jax_over_1000_steps():
     assert got[0] > 0 and float(got[-1]) == pytest.approx(3e-5, rel=1e-5)
 
 
+def _adamw_leaf_by_leaf(grads, mu, nu, params, lr, step, beta1=0.9,
+                        beta2=0.95, eps=1e-8, wd=0.1, clip=1.0):
+    """AdamW written one leaf at a time, as the update's formula reads."""
+    gnorm = global_norm(grads.values())
+    scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+    b1c = 1.0 - beta1 ** step.float()
+    b2c = 1.0 - beta2 ** step.float()
+    for n, p in params.items():
+        g = grads[n].float() * scale
+        m, v = mu[n], nu[n]
+        m.copy_(beta1 * m + (1 - beta1) * g)
+        v.copy_(beta2 * v + (1 - beta2) * g * g)
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + eps) + wd * p.float()
+        p.copy_((p.float() - lr * delta).to(p.dtype))
+
+
+@pytest.mark.parametrize("group", [1 << 26, 700])
+def test_adamw_batches_of_leaves_match_leaf_by_leaf_to_the_bit(
+        monkeypatch, group):
+    """The update takes its leaves in batches; every element comes out as
+    the leaf-by-leaf formula gives it, with batches cut by size (a leaf
+    over the batch's size alone) and by dtype."""
+    from repro_torch.optim import adamw as TA
+    monkeypatch.setattr(TA, "GROUP", group)
+    gen = torch.Generator().manual_seed(7)
+    shapes = [(3, 5), (1000,), (40, 20), (7,), (300,), (2, 2)]
+    dtypes = [torch.float32] * 4 + [torch.bfloat16, torch.float32]
+    params = {f"l{i}": torch.randn(s, generator=gen).to(d)
+              for i, (s, d) in enumerate(zip(shapes, dtypes))}
+    want = {n: p.clone() for n, p in params.items()}
+    state = adamw_init(params)
+    mu = {n: m.clone() for n, m in state.mu.items()}
+    nu = {n: v.clone() for n, v in state.nu.items()}
+    for i in range(3):
+        grads = {n: torch.randn(p.shape, generator=gen) * 10 ** -i
+                 for n, p in params.items()}
+        lr = cosine_schedule(state.step, base_lr=3e-4, warmup_steps=2,
+                             total_steps=10)
+        _adamw_leaf_by_leaf(grads, mu, nu, want, lr, state.step + 1)
+        params, state, _ = adamw_update(grads, state, params,
+                                        learning_rate=lr)
+        for got, ref in ((params, want), (state.mu, mu), (state.nu, nu)):
+            for n in got:
+                assert got[n].dtype == ref[n].dtype
+                assert torch.equal(got[n], ref[n]), (i, n)
+
+
 def test_global_norm_matches_jax():
     params_np = _jax_params(_cfg()[0])
     want = float(JA.global_norm(params_np))
